@@ -2,37 +2,30 @@
 
 Times each phase of ops/keyswitch.switch_key separately (decompose /
 digit NTT / inner product / INTT / P-scale-down) plus the surrounding
-apply_galois permutation, at the oblivious-expansion batch shape.
+apply_galois permutation, at the oblivious-expansion batch shape.  Runs
+on the GPU or exits non-zero; the first line names the device and card.
+
 Run: python benchmarks/profile_keyswitch.py [--batch B] [--profile seal|tpu32]
 """
 
 import argparse
+import json
+import pathlib
 import sys
 import time
 
 import numpy as np
 
 
-def _sync(x):
-    import jax
-
-    leaf = jax.tree_util.tree_leaves(x)[0]
-    jax.device_get(leaf.reshape(-1)[:1])
-
-
 def bench(fn, *args, iters=20):
     import jax
 
-    out = fn(*args)
-    _sync(out)
-    t0 = time.perf_counter()
-    _sync(args[0])
-    fence = time.perf_counter() - t0
+    jax.block_until_ready(fn(*args))
     t0 = time.perf_counter()
     for _ in range(iters):
         out = fn(*args)
-    _sync(out)
-    return (time.perf_counter() - t0 - fence) / iters
+    jax.block_until_ready(out)
+    return (time.perf_counter() - t0) / iters
 
 
 def main():
@@ -41,6 +34,18 @@ def main():
     ap.add_argument("--n", type=int, default=4096)
     ap.add_argument("--profile", default="seal")
     args = ap.parse_args()
+
+    from pir_tpu.utils import runtime
+
+    try:
+        devices = runtime.require_gpu()
+    except runtime.NoGpuError as exc:
+        sys.exit(f"profile_keyswitch.py: {exc}")
+    runtime.enable_compile_cache()
+    print(json.dumps({
+        "device": runtime.device_summary(devices),
+        "card": runtime.gpu_name_and_power().replace("\n", " | "),
+    }), flush=True)
 
     import jax
     import jax.numpy as jnp
@@ -115,12 +120,11 @@ def main():
         ("P scale-down", bench(f_scale, acc_c)),
         ("switch_key (full)", bench(f_full, c, key)),
     ]
-    print(f"profile={args.profile} N={N} batch={kb} L={ctx.L} Lp={ctx.Lp} "
-          f"backend={jax.default_backend()}")
+    print(f"profile={args.profile} N={N} batch={kb} L={ctx.L} Lp={ctx.Lp}")
     for name, dt in rows:
         print(f"  {name:28s} {dt * 1e3:8.3f} ms")
 
 
 if __name__ == "__main__":
-    sys.path.insert(0, str(__import__("pathlib").Path(__file__).resolve().parents[1]))
+    sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1]))
     main()

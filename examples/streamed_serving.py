@@ -1,13 +1,12 @@
 """High-throughput serving demo: a request queue through process_stream.
 
-Shows the three serving shapes on one database, fastest last:
+Shows the three serving shapes on one database:
 
   1. sequential  — process_request per request (the reference's loop,
                    pir/cpp/server.cpp:60-63)
   2. streamed    — process_stream: the caller thread keeps the device fed
                    while a worker thread completes reply downloads
-  3. batched+streamed — multi-query requests ride the wide scan kernel
-                   (one pass over the database planes serves the batch)
+  3. batched+streamed — multi-query requests, each query served in turn
 
 Run: python examples/streamed_serving.py [--db-size 65536] [--requests 12]
 """
@@ -76,7 +75,7 @@ def main():
     streamed = list(server.process_stream(iter(single), depth=6))
     dt_stream = time.perf_counter() - t0
 
-    server.process_request(batched[0])  # warm the wide-kernel shapes
+    server.process_request(batched[0])  # warm the multi-query shapes
     t0 = time.perf_counter()
     wide = list(server.process_stream(iter(batched), depth=3))
     dt_wide = time.perf_counter() - t0

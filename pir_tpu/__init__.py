@@ -1,10 +1,10 @@
-"""pir_tpu — a TPU-native single-server computational PIR framework.
+"""pir_tpu — a single-server computational PIR framework on JAX.
 
 A from-scratch JAX/XLA implementation of SealPIR-style private information
 retrieval (reference capability surface: OpenMined/PIR, a C++17 library on
 Microsoft SEAL 3.5.6).  Unlike the reference, *all* BFV/RNS polynomial
 arithmetic — negacyclic NTT/INTT, 64-bit modular multiply, Galois
-automorphisms, key switching — is implemented here, designed for TPU:
+automorphisms, key switching — is implemented here, served on a GPU:
 
 * ciphertexts are dense ``uint64[size, L, N]`` arrays (RNS limb-major),
 * every protocol op is a pure jittable function over those arrays,
@@ -14,7 +14,7 @@ automorphisms, key switching — is implemented here, designed for TPU:
   (see ``pir_tpu/proto/payload.proto``).
 
 64-bit integer mode is required: moduli are up to 61 bits and all modular
-arithmetic runs on uint64 lanes (XLA emulates these as u32 pairs on TPU).
+arithmetic runs on uint64 lanes.
 Importing this package enables ``jax_enable_x64``.
 """
 

@@ -1,6 +1,6 @@
 """PirContext: precomputed device tables for one parameter set.
 
-The TPU-native analog of the reference's ``PIRContext``
+The analog of the reference's ``PIRContext``
 (pir/cpp/context.{h,cpp}) *plus* everything SEAL's ``SEALContext``
 precomputes behind it: NTT twiddle tables per RNS limb, Barrett/Shoup
 constants, Galois automorphism permutations, key-switching scale-down
@@ -209,9 +209,10 @@ class PirContext:
     def on_host(self):
         """Run client-side crypto on the CPU backend when one is registered.
 
-        Keygen/encrypt/decrypt are latency-insensitive host ops; routing
-        them through an accelerator's (remote-)compile path wastes minutes
-        of setup.  No CPU backend registered -> no-op.
+        Keygen/encrypt/decrypt are the client's work and latency-
+        insensitive; keeping them off the accelerator leaves the card to
+        the server and matches a deployment, where the client is another
+        machine.  No CPU backend registered -> no-op.
         """
         import jax
 

@@ -129,10 +129,10 @@ def generate_encryption_params(
     coefficient chain for the ring degree.
 
     profile: "seal" (default) uses the SEAL-compatible BFVDefault chain;
-    "tpu32" uses the TPU-native sub-32-bit chain (single-u32 residues;
+    "tpu32" uses the sub-32-bit chain (single-u32 residues;
     primes_mod.tpu_coeff_modulus) — same 128-bit security and at least
-    the default's noise capacity, ~2x faster on the scan and NTT hot
-    kernels.  Both parties just share the serialized params, as always.
+    the default's noise capacity.  Both parties just share the serialized
+    params, as always.
     """
     if profile not in ("seal", "tpu32"):
         raise ValueError(f"unknown parameter profile {profile!r}")
@@ -188,6 +188,19 @@ class PirParams:
     @property
     def dimensions_sum(self) -> int:
         return sum(self.dimensions)
+
+    def reply_limbs(self) -> int:
+        """Fewest leading ciphertext limbs totalling >= t_bits + 12 bits:
+        the limbs a mod-switched reply keeps (PirServer reply_limbs).
+        At 1M x 288 B, d=2, N=4096, t=24 bits this is one 36-bit limb,
+        which balanced re-encode digits leave ~5 bits of noise budget."""
+        t_bits = self.encryption_params.plain_modulus.bit_length()
+        bits = 0
+        for count, q in enumerate(self.encryption_params.ct_modulus, 1):
+            bits += q.bit_length()
+            if bits >= t_bits + 12:
+                return count
+        return len(self.encryption_params.ct_modulus)
 
 
 def calculate_dimensions(db_size: int, num_dimensions: int) -> list[int]:

@@ -117,16 +117,13 @@ def default_coeff_modulus(poly_degree: int) -> list[int]:
 
 
 def tpu_coeff_modulus(poly_degree: int) -> list[int]:
-    """TPU-native sub-32-bit RNS chain at 128-bit security.
+    """Sub-32-bit RNS chain at 128-bit security (the "tpu32" profile).
 
-    Every prime fits one u32 lane, so a residue is a single word: the
-    DB-scan MAC drops from 9 u32 multiplies (48-bit operands, three-word
-    products — ops/pallas_scan._raw_kernel) to 4 (one 32x32->64), the DB
-    plane shrinks from 5-6 bytes/coefficient to 4, and 30-bit values need
-    only 4 balanced base-256 digits in the MXU NTT (36-bit needs 5).
-    Trade: one more ct limb than SEAL's default chain for at least the
-    same noise capacity (ct-modulus bits >= the default chain's), sized
-    inside the same HE-standard total-bits bound the default obeys.
+    Every prime fits one u32 word, so a residue is a single word and every
+    modular product is one 32x32->64 multiply.  Trade: one more ct limb
+    than SEAL's default chain for at least the same noise capacity
+    (ct-modulus bits >= the default chain's), sized inside the same
+    HE-standard total-bits bound the default obeys.
 
     Opt-in profile — generate_encryption_params(profile="tpu32"); the
     SEAL-compatible default chain stays the wire/interop default.

@@ -58,19 +58,17 @@ def _digit_inner_product(ctx, digits, data, qp):
     limb-sharded meshes.
 
     Three arithmetic strategies, chosen statically from the modulus widths
-    (same reasoning as the DB-scan kernels, ops/pallas_scan.py):
+    (the same raw-accumulation idea as the DB scan, ops/scan.py):
 
     * **u32 raw (4-mul)** — every key prime below 2^31 and the whole digit
       sum exact in u64 (L_total·q² < 2^64): one 32x32->64 product per MAC
       (wide32.mul32_wide) accumulated with plain u64 adds, ONE Barrett
-      reduction per output element.  This is what makes the sub-32-bit
-      "tpu32" parameter profile win the key switch (the round-4 gap: its
-      L·Lp grows 2x vs the default chain but each MAC is ~6x cheaper).
+      reduction per output element (the sub-32-bit "tpu32" parameter
+      profile's chains).
     * **48-bit raw (9-mul)** — primes below 2^48 (the SEAL default chain's
       36/37-bit primes): three-word raw products (wide32.mul_u48_3w) with
       exact 16-bit-half partial sums over the digit axis and one 96-bit
-      Barrett reduction per output.  ~3x fewer VPU ops than the generic
-      Barrett-per-MAC path it replaces.
+      Barrett reduction per output.
     * **generic** — any chain up to 61 bits: full 128-bit Barrett per MAC
       (the bit-exactness reference; also the only path with headroom for
       arbitrary big chains).

@@ -1,7 +1,7 @@
 """Vectorized modular arithmetic on uint64 lanes.
 
 This is the arithmetic substrate the whole framework stands on — the
-TPU-native replacement for SEAL's ``seal::util::*`` scalar kernels
+vectorized replacement for SEAL's ``seal::util::*`` scalar kernels
 (``barrett_reduce_128``, ``multiply_uint_mod``, ``add_poly_coeffmod``, …)
 that every reference call site depends on (see SURVEY §2b).
 
@@ -12,13 +12,15 @@ and a 128-bit product is handled as an explicit (hi, lo) pair built from
 
 * **Barrett** for variable×variable products, using the precomputed
   128-bit ratio floor(2^128 / q) split into two u64 words.
-* **Shoup** for constant×variable products (twiddles, key-switch keys,
-  database plaintexts): one mulhi + two mullo per multiply.  The constant's
-  companion word floor(w·2^64 / q) is precomputed host-side.
+* **Shoup** for constant×variable products (NTT twiddles, key-switch
+  scale-down constants): one mulhi + two mullo per multiply.  The
+  constant's companion word floor(w·2^64 / q) is precomputed host-side.
 
-On TPU, XLA lowers u64 to u32 lane pairs; the 32-bit splits below are
-written so that lowering stays cheap.  A Pallas u32-native path can slot in
-behind the same function signatures.
+Sums of many products skip both: ``sum_products_128`` accumulates them
+unreduced and the caller reduces the 128-bit total once.
+
+The 32-bit splits below keep every partial product a 32x32->64 multiply,
+which the backends emit as native wide multiplies.
 """
 
 from __future__ import annotations
@@ -58,6 +60,32 @@ def mul64_wide(x, y):
 def mulhi64(x, y):
     """High 64 bits of the 128-bit product."""
     return mul64_wide(x, y)[0]
+
+
+def _low32(x):
+    # truncate-then-widen (not a mask) so the backend sees zero-extended
+    # operands and can emit one 32x32->64 multiply per partial product
+    return x.astype(jnp.uint32).astype(jnp.uint64)
+
+
+def sum_products_128(x, y, axis: int):
+    """Exact Σ x·y along ``axis``, unreduced, as a (hi, lo) u64 pair.
+
+    The products are split into three column sums of their 32-bit pieces
+    (low word of x0·y0, the carry word plus the cross terms, x1·y1), so the
+    whole contraction is one fused multiply-reduce with no modular
+    reduction per term.  For operands below 2^b the middle column grows by
+    < 2^(b+2) per term: the caller keeps the axis at most 2^(62-b) long.
+    """
+    x0, y0 = _low32(x), _low32(y)
+    x1, y1 = x >> _U64(32), y >> _U64(32)
+    ll = x0 * y0
+    s0 = jnp.sum(ll & _M32, axis=axis)
+    s1 = jnp.sum((ll >> _U64(32)) + x0 * y1 + x1 * y0, axis=axis)
+    s2 = jnp.sum(x1 * y1, axis=axis)
+    lo = s0 + (s1 << _U64(32))
+    carry = (lo < s0).astype(jnp.uint64)
+    return s2 + (s1 >> _U64(32)) + carry, lo
 
 
 # ---------------------------------------------------------------------------
@@ -134,22 +162,6 @@ def shoup_precompute(w, q) -> np.ndarray:
     q_obj = np.asarray(q, dtype=object)
     res = (w_obj * (1 << 64)) // q_obj
     return np.asarray(res, dtype=np.uint64)
-
-
-def shoup_precompute_device(w, q, ratio_hi, ratio_lo):
-    """floor(w·2^64/q) computed on device (for runtime-built constant tables
-    like the NTT-form database).  Estimate via the Barrett ratio, then
-    correct: the estimate is within 2 below the true value.
-    """
-    one = np.uint64(1)
-    c = w * ratio_hi + mulhi64(w, ratio_lo)
-    for _ in range(2):
-        hi, lo = mul64_wide(c + one, q)
-        fits = (hi < w) | ((hi == w) & (lo == 0))  # (c+1)·q <= w·2^64
-        c = c + fits.astype(jnp.uint64)
-    hi, lo = mul64_wide(c, q)
-    over = (hi > w) | ((hi == w) & (lo > 0))
-    return c - over.astype(jnp.uint64)
 
 
 def mul_mod_shoup(x, w, w_shoup, q):

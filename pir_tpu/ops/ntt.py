@@ -1,9 +1,8 @@
 """Negacyclic number-theoretic transform, batched over RNS limbs.
 
-TPU-native replacement for SEAL's ``transform_to/from_ntt_inplace``
-(reference call sites: pir/cpp/database.cpp:74,104,190,226,252) — the
-per-chip speed-of-light kernel of the whole framework (BASELINE "NTT
-ops/s/chip").
+Replacement for SEAL's ``transform_to/from_ntt_inplace`` (reference call
+sites: pir/cpp/database.cpp:74,104,190,226,252) — the transform behind
+every key switch of oblivious expansion and every scan level.
 
 Design: the classic merged-twiddle radix-2 formulation (Longa–Naehrig
 style).  The forward transform is decimation-in-time over ψ-power twiddles
@@ -23,68 +22,11 @@ Layout contract used everywhere in this package:
 
 from __future__ import annotations
 
-import contextlib
-import os
-
 import numpy as np
 import jax.numpy as jnp
 
 from pir_tpu.core import primes as primes_mod
 from pir_tpu.ops import modular
-
-# NTT implementation switch.  "xla": the per-stage elementwise formulation
-# below (portable, the bit-exactness reference).  "pallas": the VMEM-staged
-# butterfly kernel (ops/pallas_ntt.py; one HBM round-trip instead of
-# log2 N).  "mxu": the fused four-step digit-matmul kernel
-# (ops/pallas_mxu_ntt.py) — the transform's FLOPs ride the systolic array;
-# 2.5-7x the xla path on v5e, the production accel impl.  "*_interpret"
-# variants run the kernels under the Pallas interpreter (CPU-mesh tests).
-# The default "auto" resolves per trace: "mxu" when tracing onto a TPU,
-# "xla" otherwise — so server executables pick up the kernel with no call-
-# site changes while client crypto under ctx.on_host() (jax.default_device
-# CPU scope, where Mosaic is unavailable) stays on the XLA path.  use_impl
-# remains for tests and explicit overrides; it is a module global mutated
-# only by those scopes.
-_IMPL = os.environ.get("PIR_NTT_IMPL", "auto")
-_IMPLS = (
-    "auto", "xla", "pallas", "pallas_interpret", "mxu", "mxu_interpret"
-)
-
-
-def _effective_platform() -> str:
-    """Platform traced-onto right now: honors jax.default_device scopes
-    (ctx.on_host pins client crypto to the CPU backend)."""
-    import jax
-
-    dev = jax.config.jax_default_device
-    if dev is not None:
-        return dev.platform
-    return jax.default_backend()
-
-
-def _resolve_impl() -> str:
-    if _IMPL == "auto":
-        return "mxu" if _effective_platform() == "tpu" else "xla"
-    return _IMPL
-
-
-@contextlib.contextmanager
-def use_impl(impl: str):
-    """Set the NTT implementation for traces entered in this scope."""
-    global _IMPL
-    if impl not in _IMPLS:
-        raise ValueError(f"unknown NTT impl {impl!r}")
-    prev = _IMPL
-    _IMPL = impl
-    try:
-        yield
-    finally:
-        _IMPL = prev
-
-
-def accel_impl() -> str:
-    """The impl the server-side hot path should trace with right now."""
-    return _resolve_impl()
 
 
 def _bit_reverse_indices(n: int) -> np.ndarray:
@@ -152,43 +94,8 @@ class NttTables:
         return out
 
     # ------------------------------------------------------------------
-    def _kernel_dispatch(self, x: jnp.ndarray, inverse: bool):
-        """Route to a Pallas kernel per the active impl, or None for the
-        XLA per-stage path.
-
-        Shard-view stand-ins (parallel/sharded.py builds NttTables with
-        ``moduli = (None,) * L`` and traced table arrays) can NEVER take
-        the kernel paths here — their plans need concrete host moduli —
-        so they fail safe to the XLA path (the shard view itself routes
-        supported sizes to pallas_mxu_ntt.ntt_sharded before delegating).
-        """
-        if not self.moduli or self.moduli[0] is None:
-            return None
-        impl = _resolve_impl()
-        if impl == "xla":
-            return None
-        interpret = impl.endswith("_interpret")
-        if impl.startswith("mxu"):
-            from pir_tpu.ops import pallas_mxu_ntt
-
-            if pallas_mxu_ntt.supported(self.n):
-                return pallas_mxu_ntt.ntt(
-                    self, x, inverse=inverse, interpret=interpret
-                )
-        # butterfly kernel: the "pallas" impl, and the small-ring fallback
-        # when the mxu kernel doesn't support N (keeps one-HBM-pass perf
-        # for N < 1024 under the "auto" default)
-        from pir_tpu.ops import pallas_ntt
-
-        if pallas_ntt.supported(self.n):
-            return pallas_ntt.ntt(self, x, inverse=inverse, interpret=interpret)
-        return None
-
     def forward(self, x: jnp.ndarray) -> jnp.ndarray:
         """Coefficient order -> bit-reversed NTT order.  x: u64[..., L, N]."""
-        out = self._kernel_dispatch(x, inverse=False)
-        if out is not None:
-            return out
         n = self.n
         L = len(self.moduli)
         q = self.limbs.q  # [L, 1] -> broadcast below as [L, 1, 1]
@@ -211,9 +118,6 @@ class NttTables:
 
     def inverse(self, x: jnp.ndarray) -> jnp.ndarray:
         """Bit-reversed NTT order -> coefficient order.  x: u64[..., L, N]."""
-        out = self._kernel_dispatch(x, inverse=True)
-        if out is not None:
-            return out
         n = self.n
         L = len(self.moduli)
         q = self.limbs.q

@@ -4,7 +4,7 @@ negacyclic monomial shifts.
 These replace ``seal::util::apply_galois`` and
 ``seal::util::negacyclic_shift_poly_coeffmod`` (reference call sites:
 pir/cpp/server.cpp:67-103).  Both are sign-flipping permutations of the
-coefficient axis; on TPU they lower to a gather plus a select — cheap
+coefficient axis; they lower to a gather plus a select — cheap
 compared to the key-switch that follows (the reference notes the ~20x cost
 ratio at pir/cpp/server.cpp:134-136).
 """

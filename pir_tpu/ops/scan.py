@@ -1,7 +1,8 @@
 """The ciphertext×database scan — the server's matmul-like hot kernel.
 
 Computes the recursive hypercube dot product of the reference's
-DatabaseMultiplier (pir/cpp/database.cpp:118-288), reformulated for TPU:
+DatabaseMultiplier (pir/cpp/database.cpp:118-288), reformulated as dense
+tensor contractions:
 
 * the database is a dense, zero-padded hypercube of NTT-form plaintext
   polynomials (zero padding is mathematically identical to the reference's
@@ -10,9 +11,9 @@ DatabaseMultiplier (pir/cpp/database.cpp:118-288), reformulated for TPU:
   multiply-accumulate contraction over all prefixes at once;
 * upper dimensions decompose intermediate ciphertexts into digit
   plaintexts (ops/decompose.py) and contract again;
-* accumulation exploits the u64 headroom above the reduced summands, so a
-  chunk of up to 2^(64-ceil(log2 q)) products is summed with plain integer
-  adds before one Barrett reduction.
+* products are accumulated unreduced in exact 128-bit column sums
+  (modular.sum_products_128) and reduced once per output, so a contraction
+  is one fused multiply-reduce over the 8-byte-per-coefficient database.
 
 Everything is jittable with static shapes; the leading "prefix" axis is
 the natural sharding axis for the multi-chip path (parallel/).
@@ -27,107 +28,86 @@ from pir_tpu.ops import decompose, modular
 
 
 def _max_chunk(ctx: PirContext) -> int:
-    """How many reduced products fit in u64 before a reduction is needed."""
+    """How many reduced summands fit in u64 before a reduction is needed."""
     maxq_bits = max(q.bit_length() for q in ctx.ct_moduli)
     return max(1, 1 << (63 - maxq_bits))
+
+
+def _raw_chunk(ctx: PirContext) -> int:
+    """How many unreduced products one 128-bit column sum may hold
+    (modular.sum_products_128): 2^(62-b) for b-bit moduli."""
+    maxq_bits = max(int(q).bit_length() for q in ctx.ct_moduli)
+    return 1 << max(0, 62 - maxq_bits)
+
+
+def _on_gpu() -> bool:
+    """Whether the trace in progress targets a GPU (honours
+    jax.default_device scopes)."""
+    import jax
+
+    dev = jax.config.jax_default_device
+    platform = dev.platform if dev is not None else jax.default_backend()
+    return platform == "gpu"
+
+
+def _gpu_kernel_applies(ctx: PirContext, depth: int, n: int) -> bool:
+    """The Triton kernel needs host-constant moduli (not a limb-sharded
+    view's traced slices), moduli below 2^48 and a power-of-two N."""
+    from pir_tpu.ops import scan_triton
+
+    return (
+        _on_gpu()
+        and getattr(ctx, "limb_axis_name", None) is None
+        and n & (n - 1) == 0
+        and scan_triton.supported(ctx.ct_moduli, depth)
+    )
 
 
 def contract_dim(
     ctx: PirContext,
     sv_ntt: jnp.ndarray,
     items_ntt: jnp.ndarray,
-    items_shoup: jnp.ndarray | None = None,
 ) -> jnp.ndarray:
     """acc[p, ...] = Σ_j sv[j] ⊙ items[p, j, ...]  (NTT domain, mod q).
 
     sv_ntt:    u64[D, 2, L, N]   — selection-vector ciphertexts, NTT form
     items_ntt: u64[P, D, L, N]   — plaintext polys per prefix p and index j
-    items_shoup: optional Shoup companions of items_ntt (precomputed at DB
-               setup) — cuts the multiply cost ~3× on the hot dimension.
     returns    u64[P, 2, L, N]
+
+    Raw accumulation: the D products of each output are summed exactly
+    (modular.sum_products_128) and reduced by one Barrett reduction, so the
+    database is read at 8 bytes per coefficient with no per-product
+    reduction and no precomputed companion table.  On a GPU the same
+    arithmetic runs as one Triton kernel (ops/scan_triton.py), which reads
+    the database at close to the memory bandwidth; elsewhere it is the
+    plain XLA form below, which is also the kernel's reference.  The
+    plain form, about 11x slower at the 1M shape, also runs on the GPU
+    where the kernel does not apply: limb-sharded meshes (traced per-shard
+    moduli) and moduli of 2^48 or wider.
     """
+    D, n = items_ntt.shape[1], items_ntt.shape[-1]
+    if _gpu_kernel_applies(ctx, D, n):
+        from pir_tpu.ops import scan_triton
+
+        return scan_triton.contract_dim(
+            sv_ntt, items_ntt, tuple(int(q) for q in ctx.ct_moduli),
+            block_n=min(256, n),
+        )
     lq = ctx.limbs_q
-    D = items_ntt.shape[1]
-    chunk = min(_max_chunk(ctx), D)
+    chunk = min(_raw_chunk(ctx), D)
     acc = None
     for start in range(0, D, chunk):
         end = min(start + chunk, D)
-        if items_shoup is not None:
-            prod = modular.mul_mod_shoup(
-                sv_ntt[None, start:end],  # x: reduced sv values
-                items_ntt[:, start:end, None],  # w: constant DB polys
-                items_shoup[:, start:end, None],
-                lq.q,
-            )
-        else:
-            prod = modular.mul_mod(
-                sv_ntt[None, start:end],  # [1, c, 2, L, N]
-                items_ntt[:, start:end, None],  # [P, c, 1, L, N]
-                lq.q,
-                lq.ratio_hi,
-                lq.ratio_lo,
-            )
-        part = modular.barrett_reduce_64(
-            jnp.sum(prod, axis=1), lq.q, lq.ratio_hi
+        hi, lo = modular.sum_products_128(
+            sv_ntt[None, start:end],  # [1, c, 2, L, N]
+            items_ntt[:, start:end, None],  # [P, c, 1, L, N]
+            axis=1,
+        )
+        part = modular.barrett_reduce_128(
+            hi, lo, lq.q, lq.ratio_hi, lq.ratio_lo
         )
         acc = part if acc is None else modular.add_mod(acc, part, lq.q)
     return acc
-
-
-def _ratio_tuples(ctx: PirContext) -> tuple:
-    lq = ctx.limbs_q
-    return (
-        tuple(int(x) for x in lq.ratio_hi[:, 0]),
-        tuple(int(x) for x in lq.ratio_lo[:, 0]),
-    )
-
-
-def _ct_moduli_bits(ctx: PirContext) -> int:
-    """Static max bit width of the ciphertext-level moduli.  Uses the full
-    chain (ctx.ct_moduli delegates through limb-shard views), so the bound
-    holds on every device of a limb-sharded mesh."""
-    return max(int(q).bit_length() for q in ctx.ct_moduli)
-
-
-def contract_dim_planes(
-    ctx: PirContext,
-    sv_ntt: jnp.ndarray,
-    db_hi: jnp.ndarray,
-    db_lo: jnp.ndarray,
-    interpret: bool = False,
-) -> jnp.ndarray:
-    """Pallas raw-accumulation contraction (ops/pallas_scan.py).
-
-    db_hi/db_lo: [P, L, D, N] planes (contraction axis on sublanes); see
-    pallas_scan.split_planes for the layout.  ~40x the XLA u64 path on TPU:
-    9 u32 multiplies per MAC, one Barrett reduction per output, and 5-6
-    database bytes per coefficient instead of 16 (no Shoup companions).
-
-    Under a limb-sharded mesh (ctx is a _LimbShardView) the per-limb
-    modulus constants are traced device-local arrays, so the
-    runtime-constants kernel variant is used.
-    """
-    from pir_tpu.ops import pallas_scan
-
-    if getattr(ctx, "limb_axis_name", None) is not None:
-        lq = ctx.limbs_q
-        consts = pallas_scan.limb_consts(lq.q, lq.ratio_hi, lq.ratio_lo)
-        return pallas_scan.contract_dim_auto_dyn(
-            sv_ntt, db_hi, db_lo, consts, lq.q, _ct_moduli_bits(ctx),
-            interpret=interpret,
-        )
-    rh, rl = _ratio_tuples(ctx)
-    return pallas_scan.contract_dim_auto(
-        sv_ntt, db_hi, db_lo, ctx.limbs_q.moduli, rh, rl, interpret=interpret
-    )
-
-
-def items_to_planes(ctx: PirContext, items_ntt: jnp.ndarray):
-    """[P, D, L, N] u64 items -> transposed (hi, lo) planes for the kernel."""
-    from pir_tpu.ops import pallas_scan
-
-    t = jnp.transpose(items_ntt, (0, 2, 1, 3))  # [P, L, D, N]
-    return pallas_scan.split_planes(t, bits=_ct_moduli_bits(ctx))
 
 
 def database_scan_decomp(
@@ -135,10 +115,7 @@ def database_scan_decomp(
     db_ntt: jnp.ndarray,
     dims: tuple,
     sv_ntt: jnp.ndarray,
-    db_shoup: jnp.ndarray | None = None,
     probe=None,
-    db_planes=None,
-    interpret: bool = False,
 ) -> jnp.ndarray:
     """Full d-dimensional decomposition-mode scan.
 
@@ -147,10 +124,6 @@ def database_scan_decomp(
             with D_0 outermost (parity with database.cpp:318-326).
     sv_ntt: u64[sum(dims), 2, L, N] — expanded selection vector, NTT form,
             dimension blocks concatenated in order.
-    db_planes: optional (hi, lo) transposed planes of the inner-grouped DB
-            ([prefix, L, inner, N], pallas_scan.split_planes) — switches
-            every contraction to the Pallas raw-accumulation kernel
-            (db_ntt/db_shoup are then unused on the hot path).
     Returns u64[(2·ER)^(d-1), 2, L, N] reply ciphertexts, coefficient form.
     """
     d = len(dims)
@@ -162,29 +135,15 @@ def database_scan_decomp(
     total = 1
     for dim in dims:
         total *= dim
-    if db_planes is not None:
-        assert db_planes[1].shape[0] * db_planes[1].shape[2] == total, (
-            "db planes must cover the zero-padded hypercube"
-        )
-    else:
-        assert db_ntt.shape[0] == total, (
-            "database must be zero-padded to the hypercube"
-        )
+    if db_ntt.shape[0] != total:
+        raise ValueError("database must be zero-padded to the hypercube")
 
     # Innermost dimension: plain DB plaintexts, one ct per prefix.
     inner = dims[-1]
     prefix = total // inner
     sv_last = sv_ntt[offsets[-1] : offsets[-1] + inner]
-    if db_planes is not None:
-        result = contract_dim_planes(
-            ctx, sv_last, db_planes[0], db_planes[1], interpret=interpret
-        )
-    else:
-        items = db_ntt.reshape(prefix, inner, *db_ntt.shape[1:])
-        shoup = (
-            db_shoup.reshape(items.shape) if db_shoup is not None else None
-        )
-        result = contract_dim(ctx, sv_last, items, shoup)  # [prefix, 2, L, N]
+    items = db_ntt.reshape(prefix, inner, *db_ntt.shape[1:])
+    result = contract_dim(ctx, sv_last, items)  # [prefix, 2, L, N]
     result = ctx.ntt_q.inverse(result)  # coeff form, like the reference's
     # per-level transform_from_ntt (database.cpp:250-254)
     if probe is not None:
@@ -222,11 +181,7 @@ def database_scan_decomp(
         items_flat = items.transpose(0, 2, 1, 3, 4).reshape(
             prefix * newC, dim, ctx.L, ctx.n
         )
-        if db_planes is not None:
-            ih, il = items_to_planes(ctx, items_flat)
-            res = contract_dim_planes(ctx, sv_lvl, ih, il, interpret=interpret)
-        else:
-            res = contract_dim(ctx, sv_lvl, items_flat)  # [prefix*newC, 2, L, N]
+        res = contract_dim(ctx, sv_lvl, items_flat)  # [prefix*newC, 2, L, N]
         res = ctx.ntt_q.inverse(res)
         result = res.reshape(prefix, newC, 2, ctx.L, ctx.n)
         if probe is not None:
@@ -236,106 +191,6 @@ def database_scan_decomp(
     if result.ndim == 4:
         result = result[:, None]
     return result.reshape(-1, 2, ctx.L, ctx.n)
-
-
-def contract_dim_planes_wide(
-    ctx: PirContext,
-    sv_wide: jnp.ndarray,
-    db_hi: jnp.ndarray,
-    db_lo: jnp.ndarray,
-    interpret: bool = False,
-) -> jnp.ndarray:
-    """S-wide Pallas raw contraction: sv u64[D, S, L, N] -> u64[P, S, L, N].
-
-    One HBM pass over the database planes serves all S selection-vector
-    columns (a folded (query, ciphertext-size) axis) — the batched-serving
-    scan kernel (pallas_scan.contract_dim_raw_wide)."""
-    from pir_tpu.ops import pallas_scan
-
-    rh, rl = _ratio_tuples(ctx)
-    return pallas_scan.contract_dim_wide_auto(
-        sv_wide, db_hi, db_lo, ctx.limbs_q.moduli, rh, rl, interpret=interpret
-    )
-
-
-def database_scan_decomp_batched(
-    ctx: PirContext,
-    dims: tuple,
-    sv_ntt_b: jnp.ndarray,
-    db_planes,
-    interpret: bool = False,
-) -> jnp.ndarray:
-    """Multi-query decomposition-mode scan over shared database planes.
-
-    sv_ntt_b: u64[B, sum(dims), 2, L, N] — B expanded selection vectors.
-    Returns u64[B, (2·ER)^(d-1), 2, L, N], bit-identical per query to
-    database_scan_decomp.  The innermost (whole-database) contraction
-    folds the B queries into the kernel's size axis so the DB planes
-    stream from HBM once for the whole batch (the reference's serial
-    query loop, pir/cpp/server.cpp:60-63, shares nothing); upper
-    recursion levels operate on per-query intermediates and loop over the
-    (static, small) batch.
-    """
-    B = sv_ntt_b.shape[0]
-    d = len(dims)
-    offsets = []
-    off = 0
-    for dim in dims:
-        offsets.append(off)
-        off += dim
-    total = 1
-    for dim in dims:
-        total *= dim
-    assert db_planes[1].shape[0] * db_planes[1].shape[2] == total
-
-    inner = dims[-1]
-    prefix = total // inner
-    n, L = ctx.n, ctx.L
-    sv_last = sv_ntt_b[:, offsets[-1] : offsets[-1] + inner]  # [B, inner, 2, L, N]
-    sv_wide = jnp.transpose(sv_last, (1, 0, 2, 3, 4)).reshape(
-        inner, B * 2, L, n
-    )
-    res = contract_dim_planes_wide(
-        ctx, sv_wide, db_planes[0], db_planes[1], interpret=interpret
-    )  # [prefix, B*2, L, N]
-    result = jnp.transpose(
-        res.reshape(prefix, B, 2, L, n), (1, 0, 2, 3, 4)
-    )  # [B, prefix, 2, L, N]
-    result = ctx.ntt_q.inverse(result)
-
-    # Upper levels: intermediates are per-query, so there is no shared DB
-    # stream to amortize — run the single-query level body per lane (B is
-    # static and small; each contraction is tiny next to the inner scan).
-    for level in range(d - 2, -1, -1):
-        dim = dims[level]
-        prefix //= dim
-        if result.ndim == 5:
-            result = result[:, :, None]  # [B, prefix*dim, C, 2, L, N]
-        C = result.shape[2]
-        pts = decompose.decompose_ct(ctx, result)
-        pts_ntt = ctx.ntt_q.forward(
-            jnp.broadcast_to(
-                pts[..., None, :], pts.shape[:-1] + (L, n)
-            )
-        )  # [B, prefix*dim, C, 2*ER, L, N]
-        newC = C * pts_ntt.shape[3]
-        items = pts_ntt.reshape(B, prefix, dim, newC, L, n)
-        items_flat = items.transpose(0, 1, 3, 2, 4, 5).reshape(
-            B, prefix * newC, dim, L, n
-        )
-        outs = []
-        for b in range(B):
-            sv_lvl = sv_ntt_b[b, offsets[level] : offsets[level] + dim]
-            ih, il = items_to_planes(ctx, items_flat[b])
-            outs.append(
-                contract_dim_planes(ctx, sv_lvl, ih, il, interpret=interpret)
-            )
-        res = ctx.ntt_q.inverse(jnp.stack(outs))  # [B, prefix*newC, 2, L, N]
-        result = res.reshape(B, prefix, newC, 2, L, n)
-
-    if result.ndim == 5:
-        result = result[:, :, None]
-    return result.reshape(B, -1, 2, L, n)
 
 
 def database_scan_ctmult(

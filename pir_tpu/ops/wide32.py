@@ -1,13 +1,10 @@
-"""64-bit modular arithmetic on u32 lane pairs — the Pallas-kernel substrate.
+"""64-bit arithmetic on u32 word pairs, in plain jnp.
 
-Mosaic (Pallas TPU) has no 64-bit integers, so inside kernels every 64-bit
-quantity is an explicit (hi, lo) pair of uint32 arrays and every 32×32
-product is built from 16-bit half-products (exact in u32).  These helpers
-are plain jnp expressions usable both inside Pallas kernels and in regular
-XLA code (for interpret-mode testing).
-
-Cost model per Shoup modmul: ~36 u32 multiplies + ~40 adds/selects — the
-per-element budget the scan kernel's roofline is computed against.
+Every 64-bit quantity is an explicit (hi, lo) pair of uint32 arrays and
+every 32×32 product is built from 16-bit half-products (exact in u32).
+The key switch's digit inner product (ops/keyswitch.py) accumulates its
+raw products in these words: three-word products, exact 16-bit-half
+column sums, and one 96-bit Barrett reduction per output.
 """
 
 from __future__ import annotations
@@ -80,55 +77,12 @@ def mulhi64(xh, xl, yh, yl):
     return h4 + cc1 + cc2 + cc3, lo_out3
 
 
-def shoup_mulmod(xh, xl, wh, wl, sh, sl, qh, ql):
-    """x·w mod q with Shoup companion s = floor(w·2^64/q); x < q.
-
-    All operands are u32 pairs; q < 2^62.
-    """
-    eh, el = mulhi64(xh, xl, sh, sl)  # quotient estimate
-    ph, pl_ = mullo64(xh, xl, wh, wl)
-    th, tl = mullo64(eh, el, qh, ql)
-    rh, rl = sub64(ph, pl_, th, tl)  # in [0, 2q)
-    over = ge64(rh, rl, qh, ql)
-    rh2, rl2 = sub64(rh, rl, qh, ql)
-    return jnp.where(over, rh2, rh), jnp.where(over, rl2, rl)
-
-
-def addmod64(xh, xl, yh, yl, qh, ql):
-    """(x + y) mod q on pairs; x, y in [0, q), q < 2^63."""
-    sh, sl = add64(xh, xl, yh, yl)
-    over = ge64(sh, sl, qh, ql)
-    rh, rl = sub64(sh, sl, qh, ql)
-    return jnp.where(over, rh, sh), jnp.where(over, rl, sl)
-
-
-def submod64(xh, xl, yh, yl, qh, ql):
-    """(x - y) mod q on pairs; x, y in [0, q)."""
-    ge = ge64(xh, xl, yh, yl)
-    dh, dl = sub64(xh, xl, yh, yl)  # correct when x >= y
-    ah, al = add64(dh, dl, qh, ql)  # wraps back into range when x < y
-    return jnp.where(ge, dh, ah), jnp.where(ge, dl, al)
-
-
-def barrett_reduce64(xh, xl, rhih, rhil, qh, ql):
-    """x mod q for x < 2^64, via the high Barrett ratio word (pair)."""
-    eh, el = mulhi64(xh, xl, rhih, rhil)
-    th, tl = mullo64(eh, el, qh, ql)
-    rh, rl = sub64(xh, xl, th, tl)
-    over = ge64(rh, rl, qh, ql)
-    rh2, rl2 = sub64(rh, rl, qh, ql)
-    return jnp.where(over, rh2, rh), jnp.where(over, rl2, rl)
-
-
 # ---------------------------------------------------------------------------
-# Raw-product accumulation path (operands below 2^48)
+# Raw-product accumulation (operands below 2^48)
 #
-# For the DB scan the per-product Shoup reduction is wasted work: with
-# moduli of b <= 48 bits the full 2b-bit product fits three u32 words, and
-# a whole contraction chunk can be accumulated unreduced (sum < 2^96) with
-# ONE Barrett reduction per output element.  Per MAC this costs 9 u32
-# multiplies (vs ~36 for shoup_mulmod) and needs no Shoup companion table —
-# halving both the VPU work and the database bytes read from HBM.
+# With moduli of b <= 48 bits the full 2b-bit product fits three u32 words,
+# and a whole contraction can be accumulated unreduced (sum < 2^96) with
+# ONE Barrett reduction per output element.
 # ---------------------------------------------------------------------------
 
 
@@ -166,18 +120,6 @@ def mul_u48_3w(xh, xl, wh, wl):
     return p2, p1b, ll_lo
 
 
-def acc96_add(a2, a1, a0, p2, p1, p0):
-    """96-bit accumulate: (a2,a1,a0) += (p2,p1,p0), wrap mod 2^96."""
-    s0 = a0 + p0
-    c0 = (s0 < a0).astype(jnp.uint32)
-    s1 = a1 + p1
-    c1 = (s1 < a1).astype(jnp.uint32)
-    s1b = s1 + c0
-    c1b = (s1b < s1).astype(jnp.uint32)
-    s2 = a2 + p2 + c1 + c1b
-    return s2, s1b, s0
-
-
 def sum96_over_axis(p2, p1, p0, axis, p2_max_bits: int = 32):
     """Exact sum of 3-word products along `axis` (< 2^16 terms).
 
@@ -188,12 +130,11 @@ def sum96_over_axis(p2, p1, p0, axis, p2_max_bits: int = 32):
     p2_max_bits: static bound on the top word's width.  Products of
     b-bit moduli have p2 < 2^(2b-64); for b <= 40 that is <= 16 bits, so
     the top word's high half is identically zero and its partial sum,
-    shift, and recombination carries drop out (~3 of the ~29 u32
-    ops/MAC the kernel spends).
+    shift, and recombination carries drop out.
     """
-    # Mosaic has no u64 and no unsigned reductions: sum the halves as i32
-    # (two's-complement wrap == u32 wrap) and reinterpret back.  The halves
-    # are sized so the 32-bit accumulation is exact mod 2^32.
+    # sum the halves as i32 (two's-complement wrap == u32 wrap) and
+    # reinterpret back; the halves are sized so the 32-bit accumulation is
+    # exact mod 2^32
     def _s(x):
         return jnp.sum(
             x.astype(jnp.int32), axis=axis, dtype=jnp.int32
@@ -222,52 +163,12 @@ def sum96_over_axis(p2, p1, p0, axis, p2_max_bits: int = 32):
     return s2, s1, s0
 
 
-def sum64_over_axis(p1, p0, axis):
-    """Exact sum of 2-word (u64) products along `axis` (< 2^16 terms).
-
-    The sub-32-bit-profile twin of sum96_over_axis: products of single-u32
-    residues are two words, so only four 16-bit half partial sums are
-    needed.  Returns (s2, s1, s0) u32 words of the 96-bit total.
-    """
-    def _s(x):
-        return jnp.sum(
-            x.astype(jnp.int32), axis=axis, dtype=jnp.int32
-        ).astype(jnp.uint32)
-
-    lo0 = _s(p0 & _M16)
-    hi0 = _s(p0 >> 16)
-    lo1 = _s(p1 & _M16)
-    hi1 = _s(p1 >> 16)
-    s0 = lo0 + (hi0 << 16)
-    c0 = (s0 < lo0).astype(jnp.uint32)
-    t0 = (hi0 >> 16) + c0
-    s1a = lo1 + t0
-    c1a = (s1a < lo1).astype(jnp.uint32)
-    s1 = s1a + (hi1 << 16)
-    c1b = (s1 < s1a).astype(jnp.uint32)
-    s2 = (hi1 >> 16) + c1a + c1b
-    return s2, s1, s0
-
-
-def barrett_reduce96(x2, x1, x0, q, ratio_hi, ratio_lo):
+def barrett_reduce96_w(x2, x1, x0, qh, ql, rhh, rhl, rlh, rll):
     """x mod q for a 96-bit x = (x2, x1, x0) u32 words; q < 2^62.
 
-    Host-side scalars q/ratio_* are Python ints (split into u32 pairs here).
     Mirrors modular.barrett_reduce_128 with hi = (0, x2), lo = (x1, x0).
-    """
-    qh = np.uint32(q >> 32)
-    ql = np.uint32(q & 0xFFFFFFFF)
-    rhh = np.uint32(ratio_hi >> 32)
-    rhl = np.uint32(ratio_hi & 0xFFFFFFFF)
-    rlh = np.uint32(ratio_lo >> 32)
-    rll = np.uint32(ratio_lo & 0xFFFFFFFF)
-    return barrett_reduce96_w(x2, x1, x0, qh, ql, rhh, rhl, rlh, rll)
-
-
-def barrett_reduce96_w(x2, x1, x0, qh, ql, rhh, rhl, rlh, rll):
-    """barrett_reduce96 with the modulus/ratio pre-split into u32 words —
-    the words may be traced scalars (limb-sharded meshes feed per-device
-    constants at runtime; parallel/sharded.py)."""
+    The modulus and its Barrett ratio come pre-split into u32 words
+    (qh, ql, ratio_hi words, ratio_lo words); they may be traced arrays."""
     # Round 1: carry = mulhi64(lo, ratio_lo)
     ch, cl = mulhi64(x1, x0, rlh, rll)
     # t2 = lo * ratio_hi (full 128: hi pair + lo pair)
@@ -299,7 +200,7 @@ def barrett_reduce96_w(x2, x1, x0, qh, ql, rhh, rhl, rlh, rll):
 
 
 # ---------------------------------------------------------------------------
-# u64 <-> pair conversions (XLA-side, at kernel boundaries)
+# u64 <-> pair conversions
 # ---------------------------------------------------------------------------
 
 

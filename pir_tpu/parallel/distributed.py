@@ -1,14 +1,14 @@
-"""Multi-host (multi-process) execution scaffold over DCN.
+"""Multi-host (multi-process) execution scaffold.
 
 The reference is single-process (SURVEY §2c); BASELINE's scaling ladder
 ("1 chip / 1 host / N>=2 hosts") makes the cross-host rung a new design
 obligation.  The layout follows the sharded-pipeline contract
 (parallel/sharded.py): the **"db" mesh axis is outermost and spans
 hosts**, so the only cross-host collective is the single homomorphic-add
-``psum`` that reduces per-shard partial replies — one DCN transfer of one
-reply-sized array per query batch.  "batch" and "limb" axes nest inside a
-host, so expansion-key traffic and the two limb collectives (key-switch
-psum, digit all_gather) ride ICI.
+``psum`` that reduces per-shard partial replies — one network transfer of
+one reply-sized array per query batch.  "batch" and "limb" axes nest
+inside a host, so expansion-key traffic and the two limb collectives
+(key-switch psum, digit all_gather) stay on the host's GPU interconnect.
 
 Usage on each host/process::
 
@@ -41,9 +41,9 @@ def init_distributed(
 
     Wraps ``jax.distributed.initialize``: process 0 hosts the coordination
     service at ``coordinator_address``; afterwards ``jax.devices()`` spans
-    every process and global meshes (``global_mesh``) shard over DCN.
-    On managed TPU pods all three arguments resolve from the environment
-    and may be omitted.
+    every process and global meshes (``global_mesh``) span hosts.
+    On clusters whose launcher exports the coordinator, process count
+    and process id (e.g. SLURM), all three may be omitted.
     """
     from jax._src import distributed as _dist_state
 
@@ -103,23 +103,25 @@ def replicate_to_mesh(x, mesh: Mesh):
     return jax.make_array_from_callback(x.shape, sharding, lambda idx: x[idx])
 
 
-def planes_from_shard_rows(params, ctx, local_pts, mesh: Mesh, row_start: int):
-    """This process's DB shard -> its slice of the global planes operand.
+def db_from_shard_rows(params, ctx, local_pts, mesh: Mesh, row_start: int):
+    """This process's DB shard -> its slice of the global scan operand.
 
     The multi-host ingest contract (BASELINE config 5): each process
     loads ONLY its own plaintext rows (PirDatabase.load_shard_rows over
     the per-shard checkpoints written by ingest_shards), NTT-transforms
-    and plane-splits them locally, and assembles the global
-    ``db_planes`` operand for make_sharded_pipeline without any process
-    ever holding the full database.
+    them locally, and assembles the global blocked database operand for
+    make_sharded_pipeline without any process ever holding the full
+    database.
 
     local_pts: u64[rows_local, N] — the contiguous plaintext rows this
     process's db-axis shards own, starting at global row `row_start`
     (rows past params.num_pt are implicit zeros and may be omitted).
-    Returns (hi, lo) global jax.Arrays shaped for the "db"-sharded
-    plane spec ([prefix, L, inner, N], prefix split over "db").
+    Returns a global jax.Array u64[D0p, prod(dims[1:]), L, N], its first
+    axis split over "db" (the blocked layout make_sharded_pipeline takes).
     """
     import jax.numpy as jnp
+
+    from pir_tpu.bfv import evaluator
 
     dims = params.dimensions
     n_db = dict(mesh.shape).get("db", 1)
@@ -127,12 +129,10 @@ def planes_from_shard_rows(params, ctx, local_pts, mesh: Mesh, row_start: int):
     block = 1
     for d in dims[1:]:
         block *= d
-    inner = dims[-1]
     d0p = -(-d0 // n_db) * n_db
-    total = d0p * block
-    rows_proc = total // jax.process_count()
-    if rows_proc % inner:
-        raise ValueError("per-process rows must align to the inner dimension")
+    rows_proc = d0p * block // jax.process_count()
+    if rows_proc % block:
+        raise ValueError("per-process rows must align to whole D0 blocks")
     if row_start != jax.process_index() * rows_proc:
         raise ValueError(
             f"row_start {row_start} is not this process's range "
@@ -144,29 +144,15 @@ def planes_from_shard_rows(params, ctx, local_pts, mesh: Mesh, row_start: int):
     padded = np.zeros((rows_proc, ctx.n), dtype=np.uint64)
     padded[: local_pts.shape[0]] = local_pts
 
-    from pir_tpu.bfv import evaluator
-    from pir_tpu.ops import pallas_scan
-
     @jax.jit
     def prep(raw):
         ntt = evaluator.plaintext_to_ntt(ctx, raw)
-        grouped = ntt.reshape(rows_proc // inner, inner, ctx.L, ctx.n)
-        return pallas_scan.split_planes(
-            jnp.transpose(grouped, (0, 2, 1, 3)), ctx.ct_moduli
-        )
+        return ntt.reshape(rows_proc // block, block, ctx.L, ctx.n)
 
     with jax.default_device(jax.local_devices()[0]):
-        hi_l, lo_l = jax.device_get(prep(jnp.asarray(padded)))
-    prefix = total // inner
+        local = jax.device_get(prep(jnp.asarray(padded)))
     limb = "limb" if "limb" in mesh.axis_names else None
-    spec = P("db", limb, None, None)
-    sharding = NamedSharding(mesh, spec)
-    lo = jax.make_array_from_process_local_data(
-        sharding, lo_l, (prefix, ctx.L, inner, ctx.n)
+    sharding = NamedSharding(mesh, P("db", None, limb, None))
+    return jax.make_array_from_process_local_data(
+        sharding, local, (d0p, block, ctx.L, ctx.n)
     )
-    if hi_l is None:
-        return None, lo
-    hi = jax.make_array_from_process_local_data(
-        sharding, hi_l, (prefix, ctx.L, inner, ctx.n)
-    )
-    return hi, lo

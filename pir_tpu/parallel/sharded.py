@@ -84,14 +84,7 @@ def default_mesh(devices=None, batch: int = 1, limb: int = 1) -> Mesh:
 
 
 def _limb_tables(ctx: PirContext) -> dict:
-    """All per-ct-limb constant arrays, keyed for sharding on axis 0.
-
-    When the ring size supports the production MXU NTT kernel, the
-    kernel's per-limb plan operands (digit matrices, twiddle planes, and
-    the scalar-words table — ops/pallas_mxu_ntt.plan_arrays) ride along
-    too, so each device runs the runtime-constants kernel on its own limb
-    slice instead of falling back to the XLA per-stage path.
-    """
+    """All per-ct-limb constant arrays, keyed for sharding on axis 0."""
     nt = ctx.ntt_q
     tabs = {
         "psi_rev": nt.psi_rev,
@@ -108,53 +101,7 @@ def _limb_tables(ctx: PirContext) -> dict:
         tabs["p_half_mod_q"] = ctx.p_half_mod_q
         tabs["p_inv_mod_q"] = ctx.p_inv_mod_q
         tabs["p_inv_mod_q_shoup"] = ctx.p_inv_mod_q_shoup
-    from pir_tpu.ops import pallas_mxu_ntt
-
-    if pallas_mxu_ntt.supported(ctx.n):
-        for prefix, inv in (("mxu_fwd_", False), ("mxu_inv_", True)):
-            for k, v in pallas_mxu_ntt.plan_arrays(nt, inv).items():
-                tabs[prefix + k] = v
     return tabs
-
-
-class _ShardNttTables(NttTables):
-    """NttTables stand-in for one limb shard: traced per-device slices.
-
-    Ring sizes the MXU kernel supports route to its runtime-constants
-    variant (pallas_mxu_ntt.ntt_sharded) whenever the active impl
-    resolves to "mxu"; everything else takes the inherited XLA per-stage
-    path, which consumes the traced twiddle slices directly.  The
-    host-plan kernel paths are unreachable by construction —
-    NttTables._kernel_dispatch skips them when ``moduli`` holds None.
-    """
-
-    # set post-construction by _LimbShardView
-    _global = None  # the limb-dense NttTables (static plan structure)
-    _mxu_fwd = None  # traced plan_arrays slices, or None
-    _mxu_inv = None
-
-    def _shard_kernel(self, x, inverse: bool):
-        from pir_tpu.ops import ntt as ntt_mod
-        from pir_tpu.ops import pallas_mxu_ntt
-
-        arrs = self._mxu_inv if inverse else self._mxu_fwd
-        if arrs is None:
-            return None
-        impl = ntt_mod.accel_impl()
-        if not impl.startswith("mxu"):
-            return None
-        return pallas_mxu_ntt.ntt_sharded(
-            self._global, arrs, x, inverse=inverse,
-            interpret=impl == "mxu_interpret",
-        )
-
-    def forward(self, x):
-        out = self._shard_kernel(x, inverse=False)
-        return out if out is not None else super().forward(x)
-
-    def inverse(self, x):
-        out = self._shard_kernel(x, inverse=True)
-        return out if out is not None else super().inverse(x)
 
 
 class _LimbShardView:
@@ -175,11 +122,10 @@ class _LimbShardView:
         self.L = l_local
         self._offset = jax.lax.axis_index(axis_name) * l_local
 
-        nt = object.__new__(_ShardNttTables)
+        nt = object.__new__(NttTables)
         nt.n = ctx.n
-        # None moduli mark the shard stand-in: len() is consumed under
-        # trace, and NttTables._kernel_dispatch fails safe to the XLA path
-        # on seeing them (host-plan kernels need concrete moduli)
+        # the shard's moduli are traced slices, not host ints: only len()
+        # is consumed under trace
         nt.moduli = (None,) * l_local
         lim = object.__new__(LimbConstants)
         lim.moduli = nt.moduli
@@ -193,15 +139,6 @@ class _LimbShardView:
         nt.psi_inv_rev_shoup = tabs["psi_inv_rev_shoup"]
         nt.n_inv = tabs["n_inv"]
         nt.n_inv_shoup = tabs["n_inv_shoup"]
-        nt._global = ctx.ntt_q
-        if any(k.startswith("mxu_fwd_") for k in tabs):
-            strip = len("mxu_fwd_")
-            nt._mxu_fwd = {
-                k[strip:]: v for k, v in tabs.items() if k.startswith("mxu_fwd_")
-            }
-            nt._mxu_inv = {
-                k[strip:]: v for k, v in tabs.items() if k.startswith("mxu_inv_")
-            }
         self.ntt_q = nt
         self.limbs_q = lim
         if ctx.special is not None:
@@ -264,10 +201,7 @@ def make_sharded_pipeline(
     dims: tuple,
     db_ntt,
     mesh: Mesh,
-    db_shoup=None,
     reply_limbs: int | None = None,
-    db_planes=None,
-    interpret: bool | None = None,
     use_ct_mult: bool = False,
 ):
     """Jitted multi-query pipeline: (query_cts, galois_keys) -> replies.
@@ -277,18 +211,15 @@ def make_sharded_pipeline(
     `reply_limbs` when set (replies mod-switched after the cross-shard
     reduction — ops/modswitch.py) and the full L otherwise.
 
+    db_ntt: the NTT-form database, either u64[prod(dims), L, N]
+    (PirDatabase.db_ntt) or already blocked as u64[D0p, prod(dims[1:]),
+    L, N] with D0p a multiple of the "db" axis (the per-process assembly
+    of parallel/distributed.db_from_shard_rows).
+
     If the mesh has a "limb" axis, the RNS limb axis of the query, the
     Galois keys, the DB, and all per-limb tables is sharded across it
     (see module docstring); reply_limbs is unsupported in that layout
     (mod-switch needs cross-limb CRT state).
-
-    db_planes: the (hi, lo) inner-grouped planes of the NTT database
-    ([prefix, L, inner, N], pallas_scan.split_planes) — switches every
-    contraction to the Pallas raw-accumulation kernel, exactly like the
-    single-chip fast path (PirDatabase._use_planes).  The prefix axis is
-    sharded over "db" (first hypercube dimension outermost), the L axis
-    over "limb".  `interpret` forces the kernel's interpret mode (defaults
-    to True off-TPU so CPU-mesh tests execute the same code path).
 
     use_ct_mult: ciphertext-multiplication recursion
     (database.cpp:202-211) instead of digit decomposition.  The returned
@@ -298,8 +229,8 @@ def make_sharded_pipeline(
     is decomposition-mode-only; the db-axis split is exact because every
     zero-padded row's product relinearizes to an exact zero.
     """
-    dim_sum = sum(dims)
     d0 = dims[0]
+    dim_sum = sum(dims)
     shape = dict(mesh.shape)
     n_db = shape.get("db", 1)
     n_limb = shape.get("limb", 1)
@@ -315,10 +246,6 @@ def make_sharded_pipeline(
                 "ciphertext-multiplication mode is unsupported with limb "
                 "sharding (BEHZ base extension crosses limbs)"
             )
-    if use_ct_mult and db_planes is not None:
-        raise ValueError("db_planes is a decomposition-mode operand")
-    if interpret is None:
-        interpret = jax.default_backend() != "tpu"
 
     def _ax(name):
         return name if name in mesh.axis_names else None
@@ -328,66 +255,28 @@ def make_sharded_pipeline(
     block = 1
     for d in dims[1:]:
         block *= d
-    inner = dims[-1]
-    middle = block // inner if len(dims) > 1 else 1  # prod(dims[1:-1])
-    # d == 1: D0 is the contraction axis of the planes ([1, L, D0, N]) —
-    # the db mesh axis splits axis 2; d > 1: prefix rows are D0-major, so
-    # padding to d0p*middle rows appends whole zero D0-blocks and the db
-    # axis splits axis 0 into contiguous per-device row blocks.
-    plane_db_axis = 2 if len(dims) == 1 else 0
 
-    # numpy operands stay numpy (replicated program constants — required
-    # for multi-process/DCN meshes); device arrays stay device arrays.
+    # numpy operands stay numpy until placement (multi-process meshes build
+    # their global arrays from host values); device arrays stay on device.
     def _as_is(x):
         return np.asarray(x) if isinstance(x, np.ndarray) else jnp.asarray(x)
 
-    if db_planes is not None:
-        ph, plo = db_planes
-        pad_mult = n_db if len(dims) == 1 else n_db * middle
-        # ph is None for sub-32-bit moduli (split_planes): the u32 kernel
-        # variant reads the lo plane only
-        plane_h = (
-            pad_axis(_as_is(ph), plane_db_axis, pad_mult)
-            if ph is not None
-            else None
-        )
-        plane_l = pad_axis(_as_is(plo), plane_db_axis, pad_mult)
-        db_blocks = np.zeros((n_db, 1, ctx.L, ctx.n), np.uint64)
-        shoup_blocks = db_blocks
+    if db_ntt.ndim == 4:
+        if db_ntt.shape[0] % n_db or db_ntt.shape[1] != block:
+            raise ValueError("blocked database does not match the mesh")
+        db_blocks = db_ntt
     else:
-        plane_h = plane_l = None
-        xp = np if isinstance(db_ntt, np.ndarray) else jnp
         db_blocks = pad_axis(
             _as_is(db_ntt).reshape(d0, block, ctx.L, ctx.n), 0, n_db
         )
-        shoup_blocks = (
-            pad_axis(
-                _as_is(db_shoup).reshape(d0, block, ctx.L, ctx.n), 0, n_db
-            )
-            if db_shoup is not None
-            else xp.zeros_like(db_blocks)
-        )
-    have_shoup = db_shoup is not None
-    have_planes = db_planes is not None
 
     limb_tabs = _limb_tables(ctx) if n_limb > 1 else {}
 
-    def shard_body(query_local, gk, rk, db_local, shoup_local, ph_l, pl_l, tabs):
+    def shard_body(query_local, gk, rk, db_local, tabs):
         # query_local: [Q/S_b, num_cts, 2, L/S_l, N]
         # db_local:    [D0p/S_db, B, L/S_l, N]
-        # ph_l/pl_l:   [D0p/S_db * middle, L/S_l, inner, N] planes
         cx = _LimbShardView(ctx, tabs, "limb") if n_limb > 1 else ctx
-        if have_planes:
-            db_flat = shoup_flat = None
-            planes_local = (ph_l, pl_l)
-        else:
-            db_flat = db_local.reshape(-1, *db_local.shape[2:])
-            shoup_flat = (
-                shoup_local.reshape(-1, *shoup_local.shape[2:])
-                if have_shoup
-                else None
-            )
-            planes_local = None
+        db_flat = db_local.reshape(-1, *db_local.shape[2:])
         my_db = jax.lax.axis_index("db") if "db" in mesh.axis_names else 0
 
         def one_query(query_cts):
@@ -419,8 +308,7 @@ def make_sharded_pipeline(
                 )
                 sv_local = jnp.concatenate([sv0_local, sv_ntt[d0:]], axis=0)
                 partial = scan.database_scan_decomp(
-                    cx, db_flat, local_dims, sv_local, shoup_flat,
-                    db_planes=planes_local, interpret=interpret,
+                    cx, db_flat, local_dims, sv_local
                 )
             # cross-shard homomorphic add: reduced summands, exact u64 psum
             if "db" in mesh.axis_names:
@@ -437,10 +325,7 @@ def make_sharded_pipeline(
         return jax.vmap(one_query)(query_local)
 
     limb = _ax("limb")
-    if plane_db_axis == 0:
-        plane_spec = P(_ax("db"), limb, None, None)
-    else:
-        plane_spec = P(None, limb, _ax("db"), None)
+    db_spec = P(_ax("db"), None, limb, None)
     mapped = jax.shard_map(
         shard_body,
         mesh=mesh,
@@ -448,50 +333,36 @@ def make_sharded_pipeline(
             P(_ax("batch"), None, None, limb, None),
             P(limb),
             P(),  # relin key: replicated (empty pytree in decomp mode)
-            P(_ax("db"), None, limb, None),
-            P(_ax("db"), None, limb, None),
-            plane_spec,
-            plane_spec,
+            db_spec,
             P(limb),
         ),
         out_specs=P(_ax("batch"), None, None, limb, None),
         check_vma=False,
     )
 
-    if db_planes is None:
-        # zero-row placeholders keep the arg structure static for jit;
-        # shaped so the axis plane_spec shards is divisible by the mesh
-        ph_shape = (
-            (n_db, n_limb, 1, ctx.n)
-            if plane_db_axis == 0
-            else (1, n_limb, n_db, ctx.n)
-        )
-        plane_h = np.zeros(ph_shape, np.uint8)
-        plane_l = np.zeros(ph_shape, np.uint32)
-
     # DB operands ride as jit ARGUMENTS, not closure constants: baked
     # constants blow up the HLO, and global (multi-process) jax.Arrays
-    # may not be closed over at all.  Host numpy operands on a
-    # multi-process mesh are lifted into sharded global arrays here
-    # (every process holds the full value and contributes its shards).
+    # may not be closed over at all.  They are placed with their sharding
+    # once, here, so no call re-distributes the database.  Host numpy
+    # operands on a multi-process mesh are lifted into sharded global
+    # arrays (every process holds the full value and contributes its
+    # shards); global arrays stay as they are.
     from jax.sharding import NamedSharding
 
     multiproc = jax.process_count() > 1
 
     def _global(arr, spec):
-        if arr is None or not multiproc or not isinstance(arr, np.ndarray):
-            return arr
         sh = NamedSharding(mesh, spec)
+        if not multiproc:
+            return jax.device_put(arr, sh)
+        if not isinstance(arr, np.ndarray):
+            return arr
         return jax.make_array_from_callback(
             arr.shape, sh, lambda idx, a=arr: a[idx]
         )
 
-    db_spec = P(_ax("db"), None, limb, None)
     operands = (
         _global(db_blocks, db_spec),
-        _global(shoup_blocks, db_spec),
-        _global(plane_h, plane_spec),
-        _global(plane_l, plane_spec),
         {k: _global(v, P(limb)) for k, v in limb_tabs.items()},
     )
     jitted = jax.jit(mapped)

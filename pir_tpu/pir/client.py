@@ -24,7 +24,7 @@ from pir_tpu.ops import decompose
 from pir_tpu.pir import wire
 from pir_tpu.pir.database import PirDatabase
 from pir_tpu.pir.encoders import IntegerEncoder, StringEncoder
-from pir_tpu.proto import payload_pb2 as pb
+from pir_tpu.proto import payload as pb
 from pir_tpu.utils.math import generate_galois_elts, invert_mod, next_power_two
 
 

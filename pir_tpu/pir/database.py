@@ -23,42 +23,21 @@ import jax.numpy as jnp
 from pir_tpu.bfv import evaluator
 from pir_tpu.core.context import PirContext
 from pir_tpu.core.params import PirParams
-from pir_tpu.ops import modular, scan
+from pir_tpu.ops import scan
 from pir_tpu.pir.encoders import IntegerEncoder, StringEncoder
 
 
-def default_scan_impl(moduli) -> str:
-    """'pallas' on a TPU backend with sub-2^48 moduli, else 'xla'."""
-    import jax
-
-    if jax.default_backend() != "tpu":
-        return "xla"
-    if max(int(q).bit_length() for q in moduli) > 48:
-        return "xla"
-    return "pallas"
-
-
 class PirDatabase:
-    def __init__(self, params: PirParams, scan_impl: str = "auto"):
+    def __init__(self, params: PirParams):
         self.params = params
         self.ctx = PirContext.for_params(params)
         self.db_pts: Optional[np.ndarray] = None  # u64[num_pt, N] mod t
         self.db_ntt: Optional[jnp.ndarray] = None  # u64[padded, L, N]
-        self.db_ntt_shoup: Optional[jnp.ndarray] = None  # Shoup companions
-        # Pallas-path operands: transposed (hi, lo) planes of the
-        # inner-dimension-grouped NTT DB ([prefix, L, inner, N]); replaces
-        # the Shoup table (5-6 bytes/coefficient instead of 16).
-        self.db_planes = None
-        if scan_impl == "auto":
-            scan_impl = default_scan_impl(self.ctx.ct_moduli)
-        if scan_impl not in ("pallas", "xla"):
-            raise ValueError(f"unknown scan_impl {scan_impl!r}")
-        self.scan_impl = scan_impl
 
     # ------------------------------------------------------------------
     @classmethod
-    def create(cls, rawdb, params: PirParams, scan_impl: str = "auto") -> "PirDatabase":
-        db = cls(params, scan_impl=scan_impl)
+    def create(cls, rawdb, params: PirParams) -> "PirDatabase":
+        db = cls(params)
         if len(rawdb) and isinstance(rawdb[0], (int, np.integer)):
             db.populate_ints(rawdb)
         else:
@@ -138,49 +117,10 @@ class PirDatabase:
         self.db_pts = pts
         padded = np.zeros((self.padded_size, self.ctx.n), dtype=np.uint64)
         padded[: pts.shape[0]] = pts
-        lq = self.ctx.limbs_q
-
-        if self._use_planes:
-            # Pallas raw-accumulation operands: inner-dimension-grouped
-            # [prefix, L, inner, N] (hi, lo) planes.  No Shoup table — the
-            # kernel Barrett-reduces once per output, so the companion
-            # array (another 8 bytes/coefficient of HBM) is dead weight.
-            from pir_tpu.ops import pallas_scan
-
-            inner = self.params.dimensions[-1]
-            prefix = self.padded_size // inner
-
-            @jax.jit
-            def prep(raw):
-                ntt = evaluator.plaintext_to_ntt(self.ctx, raw)
-                grouped = ntt.reshape(prefix, inner, self.ctx.L, self.ctx.n)
-                planes = pallas_scan.split_planes(
-                    jnp.transpose(grouped, (0, 2, 1, 3)), lq.moduli
-                )
-                return ntt, planes
-
-            self.db_ntt, self.db_planes = prep(jnp.asarray(padded))
-            self.db_ntt_shoup = None
-        else:
-
-            @jax.jit
-            def prep(raw):
-                ntt = evaluator.plaintext_to_ntt(self.ctx, raw)
-                shoup = modular.shoup_precompute_device(
-                    ntt, lq.q, lq.ratio_hi, lq.ratio_lo
-                )
-                return ntt, shoup
-
-            self.db_ntt, self.db_ntt_shoup = prep(jnp.asarray(padded))
-
-    @property
-    def _use_planes(self) -> bool:
-        return (
-            self.scan_impl == "pallas"
-            and not self.params.use_ciphertext_multiplication
+        self.db_ntt = jax.jit(lambda raw: evaluator.plaintext_to_ntt(self.ctx, raw))(
+            jnp.asarray(padded)
         )
 
-    # ------------------------------------------------------------------
     # ------------------------------------------------------------------
     # persistence of the encoded/NTT-transformed database (SURVEY §5d):
     # the one-time setup artifact worth checkpointing at large scale.
@@ -337,7 +277,7 @@ class PirDatabase:
     @classmethod
     def load_shard_rows(cls, out_dir, shard: int) -> np.ndarray:
         """One shard's encoded plaintext rows (u64[rows, N] memmap) — the
-        per-process load in a multi-host deployment; NTT/planes prep for
+        per-process load in a multi-host deployment; the NTT prep for
         the shard is one jit pass over exactly these rows."""
         import pathlib
 
@@ -346,9 +286,7 @@ class PirDatabase:
         )
 
     @classmethod
-    def load_shards(
-        cls, out_dir, params: PirParams, scan_impl: str = "auto"
-    ) -> "PirDatabase":
+    def load_shards(cls, out_dir, params: PirParams) -> "PirDatabase":
         """Reassemble a full database from per-shard checkpoints
         (single-process path; bit-exact with a direct create())."""
         import json
@@ -360,7 +298,7 @@ class PirDatabase:
             meta["dimensions"]
         ) != tuple(params.dimensions):
             raise ValueError("shard checkpoint does not match parameters")
-        db = cls(params, scan_impl=scan_impl)
+        db = cls(params)
         pts = np.zeros((params.num_pt, db.ctx.n), dtype=np.uint64)
         for s, (r0, r1) in enumerate(meta["row_ranges"]):
             if r1 > r0:
@@ -369,28 +307,13 @@ class PirDatabase:
         return db
 
     @classmethod
-    def load(cls, path, params: PirParams, scan_impl: str = "auto") -> "PirDatabase":
+    def load(cls, path, params: PirParams) -> "PirDatabase":
         data = np.load(path)
         if int(data["num_items"]) != params.num_items:
             raise ValueError("checkpoint does not match parameters")
-        db = cls(params, scan_impl=scan_impl)
+        db = cls(params)
         db.db_pts = data["db_pts"]
-        ntt = jnp.asarray(data["db_ntt"])
-        db.db_ntt = ntt
-        lq = db.ctx.limbs_q
-        if db._use_planes:
-            from pir_tpu.ops import pallas_scan
-
-            inner = params.dimensions[-1]
-            prefix = db.padded_size // inner
-            grouped = ntt.reshape(prefix, inner, db.ctx.L, db.ctx.n)
-            db.db_planes = pallas_scan.split_planes(
-                jnp.transpose(grouped, (0, 2, 1, 3)), lq.moduli
-            )
-        else:
-            db.db_ntt_shoup = modular.shoup_precompute_device(
-                ntt, lq.q, lq.ratio_hi, lq.ratio_lo
-            )
+        db.db_ntt = jnp.asarray(data["db_ntt"])
         return db
 
     def multiply(
@@ -446,23 +369,14 @@ class PirDatabase:
                 self.db_ntt,
                 self.params.dimensions,
                 sv_ntt,
-                self.db_ntt_shoup,
                 probe=probe,
-                db_planes=self.db_planes if self._use_planes else None,
             )
 
-        use_planes = self._use_planes
-
         def build():
-            def run(sv, db_ntt, db_shoup, planes):
+            def run(sv, db_ntt):
                 sv_ntt = self.ctx.ntt_q.forward(sv)
                 return scan.database_scan_decomp(
-                    self.ctx,
-                    db_ntt,
-                    self.params.dimensions,
-                    sv_ntt,
-                    db_shoup,
-                    db_planes=planes,
+                    self.ctx, db_ntt, self.params.dimensions, sv_ntt
                 )
 
             return run
@@ -472,8 +386,6 @@ class PirDatabase:
             build,
             selection_vector,
             self.db_ntt,
-            self.db_ntt_shoup,
-            self.db_planes if use_planes else None,
         )
 
     # ------------------------------------------------------------------

@@ -17,7 +17,7 @@ import numpy as np
 
 from pir_tpu.bfv.keys import GaloisKeys, KSwitchKey, RelinKeys
 from pir_tpu.core.params import EncryptionParams, PirParams
-from pir_tpu.proto import payload_pb2 as pb
+from pir_tpu.proto import payload as pb
 
 _MAGIC = b"PTP1"
 

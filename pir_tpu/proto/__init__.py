@@ -1,1 +1,1 @@
-"""Placeholder — implemented later this round."""
+"""Wire messages (payload.proto) and their protobuf-free codec (payload.py)."""

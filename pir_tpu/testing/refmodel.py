@@ -93,3 +93,23 @@ def to_rns(coeffs, moduli) -> np.ndarray:
         for c, v in enumerate(coeffs):
             out[li, c] = int(v) % int(m)
     return out
+
+
+def ntt_points(a, psi: int, q: int, ks) -> list[int]:
+    """hat_a[k] = sum_i a_i psi^{(2k+1) i} mod q at the given k only (the
+    definition of slow_negacyclic_ntt, for spot checks at large N)."""
+    out = []
+    for k in ks:
+        root = pow(psi, 2 * int(k) + 1, q)
+        acc = 0
+        p = 1
+        for ai in a:
+            acc = (acc + int(ai) * p) % q
+            p = p * root % q
+        out.append(acc)
+    return out
+
+
+def dot_mod(xs, ys, q: int) -> int:
+    """sum_j xs[j] * ys[j] mod q in big-int arithmetic."""
+    return sum(int(x) * int(y) for x, y in zip(xs, ys)) % q

@@ -74,7 +74,7 @@ def test_invalid_index_rejected():
 
 
 def test_response_count_mismatch_rejected():
-    from pir_tpu.proto import payload_pb2 as pb
+    from pir_tpu.proto import payload as pb
 
     params = tiny_pir_params(dbsize=10, bytes_per_item=8, n=64)
     client = PirClient.create(params, seed=3)
@@ -89,7 +89,7 @@ def test_process_reply_synthetic_decomposition():
     import jax.numpy as jnp
     from pir_tpu.bfv import encrypt as enc_mod
     from pir_tpu.ops import decompose
-    from pir_tpu.proto import payload_pb2 as pb
+    from pir_tpu.proto import payload as pb
 
     for d in (1, 2, 3):
         params = tiny_pir_params(dbsize=30, bytes_per_item=8, dimensions=d, n=64)

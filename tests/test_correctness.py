@@ -133,9 +133,9 @@ def test_roundtrip_reference_configs(
         _roundtrip(params, indices)
 
 
-# TPU-native sub-32-bit parameter profile (primes.tpu_coeff_modulus):
-# single-u32 residues drive the 4-mul scan kernel and 4-digit MXU NTT.
-# The benchmark-shaped configs of the reference matrix, decomp mode.
+# Sub-32-bit parameter profile (primes.tpu_coeff_modulus): single-u32
+# residues.  The benchmark-shaped configs of the reference matrix, decomp
+# mode.
 TPU32_MATRIX = [
     # (n, t_bits, elem, bpc, dbsize, d, indices)
     (4096, 24, 288, 0, 500, 2, [9, 125, 499]),

@@ -1,8 +1,8 @@
-"""2-process CPU smoke of the multi-host (DCN) scaffold.
+"""2-process CPU smoke of the multi-host scaffold.
 
 Spawns two OS processes, each with two virtual CPU devices, joined by
 ``jax.distributed`` into one 4-device global mesh (db axis spanning the
-process boundary — the DCN analog).  Each runs the sharded PIR pipeline
+process boundary, as it spans hosts in a deployment).  Each runs the sharded PIR pipeline
 on a tiny database; the fully-replicated reply decodes to the requested
 item in both processes.  (BASELINE "N>=2 hosts" rung; SURVEY §5h.)
 """
@@ -34,7 +34,7 @@ assert len(jax.devices()) == 4, jax.devices()
 from pir_tpu.pir import wire
 from pir_tpu.pir.client import PirClient
 from pir_tpu.pir.database import PirDatabase
-from pir_tpu.proto import payload_pb2 as pb
+from pir_tpu.proto import payload as pb
 from pir_tpu.testing.fixtures import generate_test_db
 from pir_tpu.testing.params import tiny_pir_params
 
@@ -46,7 +46,6 @@ client = PirClient.create(params, seed=5)           # seeded: same keys
 mesh = distributed.global_mesh(batch=1)             # db=4 spans processes
 pipeline = sharded.make_sharded_pipeline(
     db.ctx, params.dimensions, np.asarray(db.db_ntt), mesh,
-    db_shoup=np.asarray(db.db_ntt_shoup),
 )
 idx = 17
 q = distributed.replicate_to_mesh(
@@ -123,7 +122,7 @@ from pir_tpu.core.context import PirContext
 from pir_tpu.pir import wire
 from pir_tpu.pir.client import PirClient
 from pir_tpu.pir.database import PirDatabase
-from pir_tpu.proto import payload_pb2 as pb
+from pir_tpu.proto import payload as pb
 from pir_tpu.testing.fixtures import generate_test_db
 from pir_tpu.testing.params import tiny_pir_params
 
@@ -145,13 +144,12 @@ rows = [
     if r1 > r0
 ]
 local = np.concatenate(rows) if rows else np.zeros((0, ctx.n), np.uint64)
-total_padded = sum(1 for _ in ())  # doc: planes helper computes its own
-hi, lo = distributed.planes_from_shard_rows(
-    params, ctx, local, mesh, row_start=pid * (8 // 2)
+dims = params.dimensions
+rows_total = (-(-dims[0] // 4) * 4) * int(np.prod(dims[1:]))
+db_blocks = distributed.db_from_shard_rows(
+    params, ctx, local, mesh, row_start=pid * rows_total // 2
 )
-pipeline = sharded.make_sharded_pipeline(
-    ctx, params.dimensions, None, mesh, db_planes=(hi, lo)
-)
+pipeline = sharded.make_sharded_pipeline(ctx, dims, db_blocks, mesh)
 
 client = PirClient.create(params, seed=5)           # seeded: same keys
 idx = 17
@@ -174,9 +172,10 @@ print(f"proc{pid} SHARDS OK", flush=True)
 
 
 def test_two_process_shard_checkpoints(tmp_path):
-    """Per-process shard loading over DCN: each process ingests to its
-    own checkpoint files, loads only its db-axis rows, and the assembled
-    global planes serve the query (BASELINE config-5 ingest contract)."""
+    """Per-process shard loading: each process ingests to its own
+    checkpoint files, loads only its db-axis rows, and the assembled
+    global database operand serves the query (BASELINE config-5 ingest
+    contract)."""
     script = tmp_path / "worker_shards.py"
     script.write_text(_WORKER_SHARDS.replace("@@REPO@@", str(REPO)))
     coord = f"127.0.0.1:{_free_port()}"

@@ -44,7 +44,7 @@ def test_sharded_matches_unsharded(d, batch):
     # unsharded reference result, query by query
     for qi in range(len(indices)):
         single = server._pipeline(queries[qi].shape[0])(
-            jnp.asarray(queries[qi]), gk, None, db.db_ntt, db.db_ntt_shoup
+            jnp.asarray(queries[qi]), gk, None, db.db_ntt
         )
         assert (np.asarray(replies[qi]) == np.asarray(single)).all(), qi
 
@@ -60,7 +60,7 @@ def test_sharded_end_to_end_decode():
     )
     replies = np.asarray(pipeline(jnp.asarray(queries), gk))
 
-    from pir_tpu.proto import payload_pb2 as pb
+    from pir_tpu.proto import payload as pb
 
     resp = pb.Response()
     for qi in range(len(indices)):
@@ -109,7 +109,7 @@ def test_limb_sharded_matches_unsharded(d, batch, limb, q_bits):
 
     for qi in range(len(indices)):
         single = server._pipeline(queries[qi].shape[0])(
-            jnp.asarray(queries[qi]), gk, None, db.db_ntt, db.db_ntt_shoup
+            jnp.asarray(queries[qi]), gk, None, db.db_ntt
         )
         assert (np.asarray(replies[qi]) == np.asarray(single)).all(), qi
 
@@ -128,7 +128,7 @@ def test_limb_sharded_end_to_end_decode():
     )
     replies = np.asarray(pipeline(jnp.asarray(queries), gk))
 
-    from pir_tpu.proto import payload_pb2 as pb
+    from pir_tpu.proto import payload as pb
 
     resp = pb.Response()
     for qi in range(len(indices)):
@@ -138,108 +138,60 @@ def test_limb_sharded_end_to_end_decode():
         assert out[i] == raw[idx]
 
 
-def _planes_of(db):
-    """The Pallas-scan operand planes for a database (what
-    PirDatabase._finalize builds when scan_impl="pallas")."""
-    from pir_tpu.ops import pallas_scan
-
-    inner = db.params.dimensions[-1]
-    prefix = db.padded_size // inner
-    grouped = jnp.asarray(db.db_ntt).reshape(prefix, inner, db.ctx.L, db.ctx.n)
-    return pallas_scan.split_planes(
-        jnp.transpose(grouped, (0, 2, 1, 3)), db.ctx.ct_moduli
-    )
+# Moduli widths of the test chains: the default (26, 27, 28), a 34/36-bit
+# chain (the SEAL-default widths' regime: products above 64 bits) and a
+# sub-32-bit chain (products that fit one u64 word).
+_Q_BITS = [(26, 27, 28), (26, 34, 36), (20, 20, 19, 30)]
 
 
 @pytest.mark.parametrize("d,batch", [(1, 1), (2, 2), (3, 2)])
-def test_sharded_planes_matches_unsharded(d, batch):
-    """The Pallas raw-accumulation kernel (interpret mode on the CPU mesh)
-    under db x batch sharding is bit-exact vs the unsharded XLA path."""
-    params, raw, db, client, server = _setup(d)
+@pytest.mark.parametrize("q_bits", _Q_BITS[1:])
+def test_sharded_matches_unsharded_moduli_widths(d, batch, q_bits):
+    """db x batch sharding is bit-exact vs the single-device pipeline at
+    every modulus width class the scan's column sums handle."""
+    params = tiny_pir_params(
+        dbsize=30, bytes_per_item=8, dimensions=d, n=64, t_bits=10,
+        q_bits=q_bits,
+    )
+    raw = generate_test_db(30, params.bytes_per_item)
+    db = PirDatabase.create(raw, params)
+    client = PirClient.create(params, seed=5)
+    server = PirServer.create(db, params)
     mesh = sharded.default_mesh(batch=batch)
     indices = [3, 17, 29, 11][: 2 * batch] or [3]
     queries = [client._create_query(i) for i in indices]
     q = sharded.pad_axis(jnp.asarray(np.stack(queries)), 0, mesh.shape["batch"])
     gk = {e: jnp.asarray(k.data) for e, k in client.galois_keys.keys.items()}
 
-    pipeline = sharded.make_sharded_pipeline(
-        db.ctx, params.dimensions, None, mesh, db_planes=_planes_of(db)
-    )
-    replies = pipeline(q, gk)
+    replies = sharded.make_sharded_pipeline(
+        db.ctx, params.dimensions, db.db_ntt, mesh
+    )(q, gk)
     for qi in range(len(indices)):
         single = server._pipeline(queries[qi].shape[0])(
-            jnp.asarray(queries[qi]), gk, None, db.db_ntt, db.db_ntt_shoup
+            jnp.asarray(queries[qi]), gk, None, db.db_ntt
         )
         assert (np.asarray(replies[qi]) == np.asarray(single)).all(), qi
 
 
-@pytest.mark.parametrize("limb,q_bits", [(2, (26, 27, 28)), (2, (26, 34, 36))])
-def test_limb_sharded_planes_matches_unsharded(limb, q_bits):
-    """Limb-sharded mesh with the runtime-constants Pallas kernel
-    (contract_dim_raw_dyn): per-device moduli arrive as traced SMEM words."""
-    params = tiny_pir_params(
-        dbsize=30, bytes_per_item=8, dimensions=2, n=64, q_bits=q_bits
+def test_blocked_database_operand_matches_flat():
+    """The pre-blocked [D0p, B, L, N] operand (the multi-host assembly's
+    layout) gives the same replies as the flat database."""
+    params, raw, db, client, server = _setup(2)
+    mesh = sharded.default_mesh(batch=1)
+    n_db = mesh.shape["db"]
+    d0, block = params.dimensions[0], params.dimensions[1]
+    blocked = sharded.pad_axis(
+        jnp.asarray(db.db_ntt).reshape(d0, block, db.ctx.L, db.ctx.n), 0, n_db
     )
-    raw = generate_test_db(30, params.bytes_per_item)
-    db = PirDatabase.create(raw, params)
-    client = PirClient.create(params, seed=5)
-    server = PirServer.create(db, params)
-    mesh = sharded.default_mesh(batch=1, limb=limb)
-    indices = [3, 29]
-    queries = [client._create_query(i) for i in indices]
-    q = jnp.asarray(np.stack(queries))
+    q = jnp.asarray(np.stack([client._create_query(17)]))
     gk = {e: jnp.asarray(k.data) for e, k in client.galois_keys.keys.items()}
-
-    pipeline = sharded.make_sharded_pipeline(
-        db.ctx, params.dimensions, None, mesh, db_planes=_planes_of(db)
-    )
-    replies = pipeline(q, gk)
-    for qi in range(len(indices)):
-        single = server._pipeline(queries[qi].shape[0])(
-            jnp.asarray(queries[qi]), gk, None, db.db_ntt, db.db_ntt_shoup
+    flat = sharded.make_sharded_pipeline(db.ctx, params.dimensions, db.db_ntt, mesh)
+    blk = sharded.make_sharded_pipeline(db.ctx, params.dimensions, blocked, mesh)
+    assert (np.asarray(flat(q, gk)) == np.asarray(blk(q, gk))).all()
+    with pytest.raises(ValueError, match="blocked"):
+        sharded.make_sharded_pipeline(
+            db.ctx, params.dimensions, blocked[:, :-1], mesh
         )
-        assert (np.asarray(replies[qi]) == np.asarray(single)).all(), qi
-
-
-@pytest.mark.parametrize("limb,q_bits", [(2, (26, 27, 28)), (2, (26, 34, 36))])
-def test_limb_sharded_mxu_ntt_matches_unsharded(limb, q_bits):
-    """The production MXU NTT (runtime-constants variant, interpret mode)
-    on the limb mesh at a supported ring size (n=1024).
-
-    This covers the round-3 blind spot: CPU meshes resolve "auto" to
-    "xla" and the small-ring mesh tests sat below
-    pallas_mxu_ntt.supported()'s floor, so the kernel never ran under a
-    limb shard — where its per-limb constants are traced device slices.
-    N=4096 is the smallest kernel-supported ring whose 128-bit-security
-    modulus bound admits a 3-limb test chain (1024 allows 27 bits total).
-    """
-    from pir_tpu.ops import ntt as ntt_mod
-
-    params = tiny_pir_params(
-        dbsize=6, bytes_per_item=0, dimensions=2, n=4096, t_bits=20,
-        q_bits=q_bits,
-    )
-    raw = generate_test_db(params.num_items, params.bytes_per_item)
-    db = PirDatabase.create(raw, params)
-    client = PirClient.create(params, seed=5)
-    server = PirServer.create(db, params)
-    mesh = sharded.default_mesh(batch=1, limb=limb)
-    indices = [5]
-    queries = [client._create_query(i) for i in indices]
-    q = jnp.asarray(np.stack(queries))
-    gk = {e: jnp.asarray(k.data) for e, k in client.galois_keys.keys.items()}
-
-    with ntt_mod.use_impl("mxu_interpret"):
-        pipeline = sharded.make_sharded_pipeline(
-            db.ctx, params.dimensions, db.db_ntt, mesh
-        )
-        replies = np.asarray(pipeline(q, gk))
-
-    for qi in range(len(indices)):
-        single = server._pipeline(queries[qi].shape[0])(
-            jnp.asarray(queries[qi]), gk, None, db.db_ntt, db.db_ntt_shoup
-        )
-        assert (replies[qi] == np.asarray(single)).all(), qi
 
 
 @pytest.mark.parametrize("batch,limb", [(1, 1), (2, 1), (2, 2)])
@@ -331,7 +283,7 @@ def test_sharded_with_shrunken_reply():
     replies = np.asarray(pipeline(jnp.asarray(queries), gk))
     assert replies.shape[-2] == 1  # single limb crossed the wire
 
-    from pir_tpu.proto import payload_pb2 as pb
+    from pir_tpu.proto import payload as pb
 
     resp = pb.Response()
     for qi in range(len(indices)):

@@ -138,7 +138,7 @@ def test_ntt_form_ciphertext_rejected_on_wire():
 def test_wire_load_ciphertexts_accepts_seal_stream():
     from pir_tpu.core.params import create_pir_parameters
     from pir_tpu.core.context import PirContext
-    from pir_tpu.proto import payload_pb2 as pb
+    from pir_tpu.proto import payload as pb
 
     ep = tiny_encryption_params(n=64)
     params = create_pir_parameters(10, 8, 1, ep)

@@ -17,7 +17,7 @@ from pir_tpu.pir import wire
 from pir_tpu.pir.client import PirClient
 from pir_tpu.pir.database import PirDatabase
 from pir_tpu.pir.server import PirServer
-from pir_tpu.proto import payload_pb2 as pb
+from pir_tpu.proto import payload as pb
 from pir_tpu.testing.fixtures import generate_test_db
 from pir_tpu.testing.params import tiny_pir_params
 

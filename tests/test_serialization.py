@@ -7,7 +7,7 @@ from pir_tpu.core.params import generate_encryption_params
 from pir_tpu.pir import wire
 from pir_tpu.pir.client import PirClient
 from pir_tpu.pir.database import PirDatabase
-from pir_tpu.proto import payload_pb2 as pb
+from pir_tpu.proto import payload as pb
 from pir_tpu.testing.fixtures import generate_test_db, make_toolkit
 from pir_tpu.testing.params import tiny_pir_params
 
@@ -84,7 +84,6 @@ def test_database_checkpoint_roundtrip(tmp_path):
     db.save(path)
     db2 = PirDatabase.load(path, p)
     assert (np.asarray(db2.db_ntt) == np.asarray(db.db_ntt)).all()
-    assert (np.asarray(db2.db_ntt_shoup) == np.asarray(db.db_ntt_shoup)).all()
     assert (db2.db_pts == db.db_pts).all()
     with pytest.raises(ValueError):
         PirDatabase.load(path, tiny_pir_params(dbsize=11, bytes_per_item=8, n=64))

@@ -7,7 +7,7 @@ from pir_tpu.pir import wire
 from pir_tpu.pir.client import PirClient
 from pir_tpu.pir.database import PirDatabase
 from pir_tpu.pir.server import PirServer
-from pir_tpu.proto import payload_pb2 as pb
+from pir_tpu.proto import payload as pb
 from pir_tpu.testing.fixtures import generate_test_db
 from pir_tpu.testing.params import tiny_pir_params
 
@@ -168,29 +168,44 @@ def test_split_pipeline_multi_ct_query():
     )
 
 
-def test_batched_wide_scan_path():
-    """process_request_batched over the wide scan kernel (planes path,
-    interpret mode) matches sequential serving byte-for-byte, including a
-    ragged tail (batch not a multiple of the lane width)."""
-    import os
+@pytest.mark.parametrize(
+    "stats,expect",
+    [
+        (None, 4 << 30),  # CPU: no memory statistics
+        ({}, 4 << 30),
+        ({"bytes_limit": 60 << 30, "bytes_in_use": 4 << 30}, 28 << 30),
+        ({"bytes_limit": 10 << 30}, 5 << 30),
+    ],
+)
+def test_batch_budget_from_memory_stats(stats, expect):
+    from pir_tpu.pir import server as server_mod
 
-    params = tiny_pir_params(dbsize=30, bytes_per_item=8, dimensions=2, n=64)
-    raw = generate_test_db(30, 8)
-    db = PirDatabase.create(raw, params, scan_impl="pallas")
-    assert db._use_planes
-    client = PirClient.create(params, seed=11)
-    server = PirServer.create(db, params)
-    os.environ["PIR_BATCH_LANES"] = "2"
-    try:
-        indices = [1, 9, 23]  # 3 queries, lane width 2 -> ragged tail
-        req = client.create_request(indices)
-        bat = server.process_request_batched(req)
-        seq = server.process_request(req)
-        assert len(bat.reply) == len(seq.reply) == 3
-        for a, b in zip(seq.reply, bat.reply):
-            assert list(a.ct) == list(b.ct)
-        out = client.process_response(indices, bat)
-        for i, idx in enumerate(indices):
-            assert out[i] == raw[idx]
-    finally:
-        del os.environ["PIR_BATCH_LANES"]
+    assert server_mod.batch_budget(stats) == expect
+
+
+def test_vmap_lanes_follow_device_memory(stack, monkeypatch):
+    """The vmapped batch width is the free-memory budget over the
+    per-lane estimate, at least 1."""
+    from pir_tpu.pir import server as server_mod
+
+    params, raw, db, client, server = stack
+    lane = 3 * db.padded_size * 2 * db.ctx.L * db.ctx.n * 8
+    monkeypatch.setattr(server_mod, "batch_budget", lambda stats: 5 * lane + 1)
+    assert server._max_vmap_lanes() == 5
+    monkeypatch.setattr(server_mod, "batch_budget", lambda stats: 0)
+    assert server._max_vmap_lanes() == 1
+
+
+def test_batched_ragged_lanes_match_sequential(stack, monkeypatch):
+    """A batch wider than the lane cap runs in chunks (ragged tail
+    included) and matches sequential serving byte for byte."""
+    params, raw, db, client, server = stack
+    monkeypatch.setattr(PirServer, "_max_vmap_lanes", lambda self: 2)
+    indices = [1, 9, 23]
+    req = client.create_request(indices)
+    bat = server.process_request_batched(req)
+    seq = server.process_request(req)
+    assert bat.SerializeToString() == seq.SerializeToString()
+    out = client.process_response(indices, bat)
+    for i, idx in enumerate(indices):
+        assert out[i] == raw[idx]

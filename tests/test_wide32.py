@@ -1,4 +1,4 @@
-"""u32-pair arithmetic + Pallas scan kernel (interpret mode on CPU)."""
+"""u32-pair arithmetic (the key switch's raw-accumulation words)."""
 
 import numpy as np
 import jax.numpy as jnp
@@ -6,7 +6,6 @@ import pytest
 
 from pir_tpu.core import primes
 from pir_tpu.ops import modular, wide32
-from pir_tpu.ops.pallas_scan import contract_dim_pallas
 
 M64 = (1 << 64) - 1
 
@@ -54,70 +53,24 @@ def test_add_sub_ge_64(rng):
     assert (ge == (x >= y)).all()
 
 
-@pytest.mark.parametrize("qbits", [28, 36, 44, 61])
-def test_shoup_and_barrett_pairs(rng, qbits):
-    q = primes.get_prime(128, qbits)
-    x = rng.integers(0, q, size=2000, dtype=np.uint64)
-    w = rng.integers(0, q, size=2000, dtype=np.uint64)
-    s = modular.shoup_precompute(w, q)
-    xh, xl = _pairs(x)
-    wh, wl = _pairs(w)
-    sh, sl = _pairs(s)
-    qh, ql = np.uint32(q >> 32), np.uint32(q & 0xFFFFFFFF)
-    rh, rl_ = wide32.shoup_mulmod(xh, xl, wh, wl, sh, sl, qh, ql)
-    expect = x.astype(object) * w.astype(object) % q
-    assert (_join(rh, rl_) == expect).all()
-
-    ratio_hi, _ = modular.barrett_ratio(q)
-    z = rng.integers(0, 1 << 63, size=2000, dtype=np.uint64) * 2 + 1
-    zh, zl = _pairs(z)
-    bh, bl = wide32.barrett_reduce64(
-        zh, zl,
-        np.uint32(ratio_hi >> 32), np.uint32(ratio_hi & 0xFFFFFFFF),
-        qh, ql,
+def _words(q: int):
+    """(qh, ql, ratio_hi words, ratio_lo words) as u32 scalars."""
+    rh, rl = modular.barrett_ratio(q)
+    return tuple(
+        np.uint32(w)
+        for v in (q, rh, rl)
+        for w in (v >> 32, v & 0xFFFFFFFF)
     )
-    assert (_join(bh, bl) == z.astype(object) % q).all()
 
 
-def test_pallas_contract_matches_xla(rng):
-    from pir_tpu.core.context import PirContext
-    from pir_tpu.ops import scan
-    from pir_tpu.testing.params import tiny_pir_params
-
-    ctx = PirContext(tiny_pir_params(n=256, t_bits=13))
-    P, D, L, N = 3, 7, ctx.L, ctx.n
-    db = np.zeros((P, D, L, N), dtype=np.uint64)
-    sv = np.zeros((D, 2, L, N), dtype=np.uint64)
-    for li, q in enumerate(ctx.ct_moduli):
-        db[:, :, li] = rng.integers(0, q, size=(P, D, N), dtype=np.uint64)
-        sv[:, :, li] = rng.integers(0, q, size=(D, 2, N), dtype=np.uint64)
-    shoup = np.zeros_like(db)
-    for li, q in enumerate(ctx.ct_moduli):
-        shoup[:, :, li] = modular.shoup_precompute(db[:, :, li], q)
-
-    expect = np.asarray(
-        scan.contract_dim(ctx, jnp.asarray(sv), jnp.asarray(db))
-    )
-    got = np.asarray(
-        contract_dim_pallas(
-            jnp.asarray(sv),
-            jnp.asarray(db),
-            jnp.asarray(shoup),
-            tuple(ctx.ct_moduli),
-            tuple(int(r) for r in np.asarray(ctx.limbs_q.ratio_hi).ravel()),
-            block_n=128,
-            interpret=True,
-        )
-    )
-    assert (got == expect).all()
+def _reduce96(s2, s1, s0, q):
+    return wide32.barrett_reduce96_w(s2, s1, s0, *_words(q))
 
 
 @pytest.mark.parametrize("qbits", [30, 36, 44, 48])
 def test_mul_u48_3w_and_sum96(rng, qbits):
-    from pir_tpu.ops.pallas_scan import max_raw_chunk
-
     q = primes.get_prime(128, qbits)
-    D = min(64, max_raw_chunk((q,)))
+    D = min(64, 1 << (96 - 2 * qbits))  # the whole sum stays below 2^96
     x = rng.integers(0, q, size=(D, 50), dtype=np.uint64)
     w = rng.integers(0, q, size=(D, 50), dtype=np.uint64)
     xh, xl = _pairs(x)
@@ -136,147 +89,30 @@ def test_mul_u48_3w_and_sum96(rng, qbits):
     ) + (np.asarray(s1).astype(object) << 32) + np.asarray(s0).astype(object)
     assert (gots == total % (1 << 96)).all()
 
-    ratio_hi, ratio_lo = modular.barrett_ratio(q)
-    bh, bl = wide32.barrett_reduce96(s2, s1, s0, q, int(ratio_hi), int(ratio_lo))
+    bh, bl = _reduce96(s2, s1, s0, q)
     assert (_join(bh, bl) == total % q).all()
 
 
 def test_barrett_reduce96_random(rng):
     q = primes.get_prime(256, 45)
-    ratio_hi, ratio_lo = modular.barrett_ratio(q)
     words = rng.integers(0, 1 << 32, size=(3, 4000), dtype=np.uint32)
     x2, x1, x0 = (jnp.asarray(w) for w in words)
-    rh, rl = wide32.barrett_reduce96(x2, x1, x0, q, int(ratio_hi), int(ratio_lo))
+    rh, rl = _reduce96(x2, x1, x0, q)
     vals = (
         words[0].astype(object) << 64
     ) + (words[1].astype(object) << 32) + words[2].astype(object)
     assert (_join(rh, rl) == vals % q).all()
 
 
-# (26, 27) ct-limb bits take the single-u32-residue 4-mul kernel
-# (_raw_kernel_u32, hi plane None); (26, 34) takes the 3-word 9-mul path.
-@pytest.mark.parametrize("q_bits", [(26, 27, 28), (26, 34, 36)])
-def test_pallas_raw_contract_matches_xla(rng, q_bits):
-    from pir_tpu.core.context import PirContext
-    from pir_tpu.ops import pallas_scan, scan
-    from pir_tpu.testing.params import tiny_pir_params
-
-    ctx = PirContext(tiny_pir_params(n=256, t_bits=13, q_bits=q_bits))
-    assert max(q.bit_length() for q in ctx.ct_moduli) <= 48
-    P, D, L, N = 3, 7, ctx.L, ctx.n
-    db = np.zeros((P, D, L, N), dtype=np.uint64)
-    sv = np.zeros((D, 2, L, N), dtype=np.uint64)
-    for li, q in enumerate(ctx.ct_moduli):
-        db[:, :, li] = rng.integers(0, q, size=(P, D, N), dtype=np.uint64)
-        sv[:, :, li] = rng.integers(0, q, size=(D, 2, N), dtype=np.uint64)
-
-    expect = np.asarray(
-        scan.contract_dim(ctx, jnp.asarray(sv), jnp.asarray(db))
-    )
-    dbt = jnp.transpose(jnp.asarray(db), (0, 2, 1, 3))  # [P, L, D, N]
-    dbh, dbl = pallas_scan.split_planes(dbt, ctx.ct_moduli)
-    got = np.asarray(
-        scan.contract_dim_planes(ctx, jnp.asarray(sv), dbh, dbl, interpret=True)
-    )
-    assert (got == expect).all()
-
-
-@pytest.mark.parametrize("q_bits", [(26, 27, 28), (26, 34, 36)])
-def test_database_scan_decomp_planes_matches(rng, q_bits):
-    from pir_tpu.core.context import PirContext
-    from pir_tpu.ops import pallas_scan, scan
-    from pir_tpu.testing.params import tiny_pir_params
-
-    ctx = PirContext(tiny_pir_params(n=128, t_bits=13, q_bits=q_bits))
-    dims = (3, 4)
-    total = 12
-    db = np.zeros((total, ctx.L, ctx.n), dtype=np.uint64)
-    sv = np.zeros((sum(dims), 2, ctx.L, ctx.n), dtype=np.uint64)
-    for li, q in enumerate(ctx.ct_moduli):
-        db[:, li] = rng.integers(0, q, size=(total, ctx.n), dtype=np.uint64)
-        sv[:, :, li] = rng.integers(0, q, size=(sum(dims), 2, ctx.n), dtype=np.uint64)
-    db_j = jnp.asarray(db)
-    sv_j = jnp.asarray(sv)
-    expect = np.asarray(scan.database_scan_decomp(ctx, db_j, dims, sv_j))
-
-    grouped = db_j.reshape(total // dims[-1], dims[-1], ctx.L, ctx.n)
-    planes = pallas_scan.split_planes(
-        jnp.transpose(grouped, (0, 2, 1, 3)), ctx.ct_moduli
-    )
-    got = np.asarray(
-        scan.database_scan_decomp(
-            ctx, None, dims, sv_j, db_planes=planes, interpret=True
-        )
-    )
-    assert (got == expect).all()
-
-
-@pytest.mark.parametrize("q_bits", [(26, 27, 28), (26, 34, 36)])
-def test_pallas_wide_contract_matches(rng, q_bits):
-    """The S-wide kernel (batched serving) equals per-column contract_dim."""
-    from pir_tpu.core.context import PirContext
-    from pir_tpu.ops import pallas_scan, scan
-    from pir_tpu.testing.params import tiny_pir_params
-
-    ctx = PirContext(tiny_pir_params(n=256, t_bits=13, q_bits=q_bits))
-    P, D, S, L, N = 3, 7, 6, ctx.L, ctx.n
-    db = np.zeros((P, D, L, N), dtype=np.uint64)
-    sv = np.zeros((D, S, L, N), dtype=np.uint64)
-    for li, q in enumerate(ctx.ct_moduli):
-        db[:, :, li] = rng.integers(0, q, size=(P, D, N), dtype=np.uint64)
-        sv[:, :, li] = rng.integers(0, q, size=(D, S, N), dtype=np.uint64)
-
-    dbt = jnp.transpose(jnp.asarray(db), (0, 2, 1, 3))
-    dbh, dbl = pallas_scan.split_planes(dbt, ctx.ct_moduli)
-    got = np.asarray(
-        scan.contract_dim_planes_wide(
-            ctx, jnp.asarray(sv), dbh, dbl, interpret=True
-        )
-    )  # [P, S, L, N]
-    # reference: the S columns two at a time through the 2-wide base path
-    for s0 in range(0, S, 2):
-        expect = np.asarray(
-            scan.contract_dim(
-                ctx, jnp.asarray(sv[:, s0 : s0 + 2]), jnp.asarray(db)
-            )
-        )
-        assert (got[:, s0 : s0 + 2] == expect).all()
-
-
-@pytest.mark.parametrize("q_bits", [(26, 27, 28), (26, 34, 36)])
-def test_database_scan_decomp_batched_matches(rng, q_bits):
-    """Multi-query scan == per-query scans, bit for bit."""
-    from pir_tpu.core.context import PirContext
-    from pir_tpu.ops import pallas_scan, scan
-    from pir_tpu.testing.params import tiny_pir_params
-
-    ctx = PirContext(tiny_pir_params(n=128, t_bits=13, q_bits=q_bits))
-    dims = (3, 4)
-    total = 12
-    B = 2
-    db = np.zeros((total, ctx.L, ctx.n), dtype=np.uint64)
-    sv = np.zeros((B, sum(dims), 2, ctx.L, ctx.n), dtype=np.uint64)
-    for li, q in enumerate(ctx.ct_moduli):
-        db[:, li] = rng.integers(0, q, size=(total, ctx.n), dtype=np.uint64)
-        sv[:, :, :, li] = rng.integers(
-            0, q, size=(B, sum(dims), 2, ctx.n), dtype=np.uint64
-        )
-    grouped = jnp.asarray(db).reshape(
-        total // dims[-1], dims[-1], ctx.L, ctx.n
-    )
-    planes = pallas_scan.split_planes(
-        jnp.transpose(grouped, (0, 2, 1, 3)), ctx.ct_moduli
-    )
-    got = np.asarray(
-        scan.database_scan_decomp_batched(
-            ctx, dims, jnp.asarray(sv), planes, interpret=True
-        )
-    )
-    for b in range(B):
-        expect = np.asarray(
-            scan.database_scan_decomp(
-                ctx, None, dims, jnp.asarray(sv[b]), db_planes=planes,
-                interpret=True,
-            )
-        )
-        assert (got[b] == expect).all()
+@pytest.mark.parametrize("qbits", [28, 36, 44, 48])
+def test_barrett_reduce96_extremes(qbits):
+    """Word-boundary inputs: 0, q-1, q, 2^32-1 per word, 2^96-1, and the
+    multiples of q next to the top of the range."""
+    q = primes.get_prime(128, qbits)
+    top = (1 << 96) - 1
+    vals = [0, 1, q - 1, q, q + 1, (1 << 32) - 1, (1 << 64) - 1, top,
+            top - top % q, top - top % q - 1, (top // q) * q - q]
+    words = [[(v >> s) & 0xFFFFFFFF for v in vals] for s in (64, 32, 0)]
+    x2, x1, x0 = (jnp.asarray(np.array(w, dtype=np.uint32)) for w in words)
+    rh, rl = _reduce96(x2, x1, x0, q)
+    assert list(_join(rh, rl)) == [v % q for v in vals]
